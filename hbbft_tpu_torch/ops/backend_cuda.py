@@ -1,0 +1,108 @@
+"""The CUDA ops backend — drop-in for the port's ``CpuBackend``.
+
+The port of ``hbbft_tpu/ops/backend_tpu.py`` for the share-verification
+plane: the G1 MSMs of the fused flush run on the device (packed wires →
+torch unpack → the ``win_g1`` CUDA kernel → complete-add trees), the G2
+MSMs and the pairings stay on the host (native), as in the reference
+(``backend_tpu.py:276`` routes G2 to the host).
+
+Routing is two size rules, written here: a flat G1 MSM of fewer than
+``G1_DEVICE_MIN`` points and a product-form one of fewer than
+``G1_PRODUCT_DEVICE_MIN`` run on the host, every other one on the
+device.  A device failure raises to the caller — there is no degrade
+ladder, no silent host recompute.  ``CudaBackend()`` means the card and
+raises when CUDA is absent; ``CudaBackend(device="cpu")`` runs the same
+path with every kernel's plain PyTorch version (the CPU tests).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from ..crypto import threshold as T
+from ..crypto.backend import CpuBackend, EagerFinalizer
+from ..crypto.curve import G1, G2, G2_GEN
+from ..crypto.pairing import pairing_check
+from ..device import DeviceLike, resolve_device
+from . import packed_msm
+
+
+class CudaBackend(CpuBackend):
+    """Batched PyTorch/CUDA ops backend (same results as ``CpuBackend``)."""
+
+    name = "cuda"
+
+    # G1 MSMs below these many points run native host Pippenger: the
+    # one-thread-per-point window ladder costs ~0.15-0.2 s of latency at
+    # any K.  On an H100 the product form (96-bit s-scalars on the card
+    # against a flat 255-bit host MSM) wins from K = 8,192; a flat MSM
+    # with 128-bit coefficients loses at 32,768 and wins at 65,536
+    # (scripts/torch_g1_band.py; numbers in PERF.md).
+    G1_DEVICE_MIN = 1 << 16
+    G1_PRODUCT_DEVICE_MIN = 1 << 13
+
+    def __init__(self, device: DeviceLike = None):
+        self.device = resolve_device(device)
+
+    @staticmethod
+    def _on_host(k: int, minimum: int) -> bool:
+        """Empty, or below the size rule: native host Pippenger."""
+        return k == 0 or k < minimum
+
+    # -- group MSMs --------------------------------------------------------
+
+    def g1_msm(self, points: Sequence[G1], scalars: Sequence[int]) -> G1:
+        return self.g1_msm_async(points, scalars)()
+
+    def g1_msm_async(self, points, scalars):
+        points, scalars = list(points), list(scalars)
+        if self._on_host(len(points), self.G1_DEVICE_MIN):
+            return EagerFinalizer(CpuBackend.g1_msm(self, points, scalars))
+        return packed_msm.g1_msm_async(points, scalars, self.device)
+
+    # -- product-form MSM (the fused flush's dominant shape) ---------------
+
+    def g1_ship(self, points, group_sizes: Optional[Sequence[int]] = None):
+        """Marshal the wires and copy them to the device; the returned
+        device tensor goes to :meth:`g1_msm_product_async`."""
+        points = list(points)
+        if self._on_host(len(points), self.G1_PRODUCT_DEVICE_MIN):
+            return points
+        return packed_msm.ship_points(points, self.device)
+
+    def g1_msm_product_async(self, points, s_coeffs, t_coeffs, group_sizes):
+        if not isinstance(points, torch.Tensor):
+            points = list(points)
+            if self._on_host(len(points), self.G1_PRODUCT_DEVICE_MIN):
+                return super().g1_msm_product_async(
+                    points, s_coeffs, t_coeffs, group_sizes
+                )
+        return packed_msm.g1_msm_product_async(
+            points, s_coeffs, t_coeffs, group_sizes, self.device
+        )
+
+    # -- batched share verification ---------------------------------------
+
+    def batch_verify_shares(
+        self,
+        shares: Sequence[G1],
+        pks: Sequence[G2],
+        base: G1,
+        context: bytes = b"",
+    ) -> bool:
+        """Identical math to ``threshold.batch_verify_shares`` with the G1
+        MSM on the device: e(Σrᵢ·σᵢ, P₂)·e(−base, Σrᵢ·pkᵢ) == 1."""
+        shares = list(shares)
+        pks = list(pks)
+        if not shares:
+            return True
+        coeffs = T._rlc_coeffs(
+            context,
+            [s.to_bytes() for s in shares] + [p.to_bytes() for p in pks],
+        )[: len(shares)]
+        agg_share_fin = self.g1_msm_async(shares, coeffs)
+        u_pks, u_coeffs = T.aggregate_by_point(pks, coeffs)
+        agg_pk = self.g2_msm(u_pks, u_coeffs)  # overlaps the device leg
+        return pairing_check([(agg_share_fin(), G2_GEN), (-base, agg_pk)])

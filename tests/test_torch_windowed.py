@@ -1,0 +1,116 @@
+"""The windowed G1 scalar multiplication of the port (``ops/cuda_ec.py``).
+
+On the CPU the wrapper runs the kernel's plain PyTorch version, which
+must give the reference Pallas kernel's limbs exactly
+(``pallas_ec.scalar_mul_windowed(..., interpret=True)``; that compile
+takes minutes on a CPU, so the exact-limb case is marked slow) and the
+reference host curve's k·P by wire bytes (tier-1, at the flush's
+96-bit scalar width).  The CUDA source's constant tables must equal the Python
+field's, since the kernel cannot run here.
+"""
+
+import random
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from hbbft_tpu.crypto import curve as RC
+from hbbft_tpu.ops import ec_jax as RE
+from hbbft_tpu.ops import limbs as RL
+from hbbft_tpu.ops import pallas_ec as RPE
+from hbbft_tpu_torch.crypto import curve as PC
+from hbbft_tpu_torch.ops import cuda_ec, ec as PE, kernels, limbs as PL
+
+# small tensors: intra-op threads only add contention beside the other
+# test workers
+torch.set_num_threads(1)
+
+
+def _points(seed: int, n: int):
+    rng = random.Random(seed)
+    ks = [rng.randrange(1, 1 << 64) for _ in range(n)]
+    return [PC.G1_GEN * k for k in ks] + [PC.G1.infinity()], ks
+
+
+def test_bits_to_digits_matches_reference():
+    rng = random.Random(1)
+    ks = [rng.randrange(0, 1 << 61) for _ in range(6)]  # short top window
+    bits = PL.scalars_to_bits(ks, 61)
+    assert np.array_equal(bits, RL.scalars_to_bits(ks, 61))
+    assert np.array_equal(cuda_ec.bits_to_digits(bits), RPE.bits_to_digits(bits))
+
+
+def test_windowed_plain_matches_host_96bit():
+    """K = 7 (not a multiple of 128), an identity row, a zero scalar and
+    96-bit scalars (the flush's width): the points and k·P come from the
+    reference's host curve, the points enter through the reference's
+    ``g1_to_limbs``, and the results must have k·P's wire bytes."""
+    rng = random.Random(2)
+    ref_pts = [RC.G1_GEN * rng.randrange(1, 1 << 64) for _ in range(6)]
+    ref_pts.append(RC.G1.infinity())
+    ks = [rng.randrange(0, 1 << 96) for _ in ref_pts]
+    ks[1] = 0
+    limbs = torch.from_numpy(np.asarray(RE.g1_to_limbs(ref_pts)))
+    before = dict(cuda_ec.LAUNCHES)
+    out = cuda_ec.scalar_mul_windowed(limbs, PL.scalars_to_bits(ks, 96))
+    assert out.shape == (7, 3, 38) and out.dtype == torch.int32
+    assert cuda_ec.LAUNCHES == before  # CPU tensors never count a launch
+    for i, (p, k) in enumerate(zip(ref_pts, ks)):
+        assert PE.g1_from_limbs(out[i]).to_bytes() == (p * k).to_bytes(), i
+
+
+@pytest.mark.slow
+def test_windowed_plain_exact_vs_pallas_interpret():
+    """Exact limbs against the reference Pallas kernel in interpret mode
+    (one tile, 8-bit scalars as in tests/test_pallas_ec.py; the
+    interpret-mode compile takes minutes on a CPU)."""
+    rng = random.Random(4)
+    ks_pts = [rng.randrange(1, 1 << 64) for _ in range(6)]
+    ref_pts = [RC.G1_GEN * k for k in ks_pts] + [RC.G1.infinity()]
+    ks = [rng.randrange(0, 256) for _ in ref_pts]
+    ks[2] = 0
+    limbs = RE.g1_to_limbs(ref_pts)
+    bits = RL.scalars_to_bits(ks, 8)
+    ref = np.asarray(RPE.scalar_mul_windowed(limbs, bits, interpret=True))
+    got = cuda_ec.scalar_mul_windowed(torch.from_numpy(limbs), bits).numpy()
+    assert np.array_equal(ref, got)
+
+
+def test_digit_outside_window_range_selects_identity():
+    """The reference's masked cascade falls through to table[0] for a
+    digit outside 1..15; the plain version (and the kernel) do too."""
+    pts, _ = _points(5, 2)
+    limbs = torch.from_numpy(PE.g1_to_limbs(pts))
+    digits = torch.tensor([[16], [-1], [0]], dtype=torch.int32)
+    out = cuda_ec.win_g1(limbs, digits)
+    for i in range(3):
+        assert PE.g1_from_limbs(out[i]).is_infinity()
+
+
+def test_win_g1_checks_its_inputs():
+    limbs = torch.zeros((2, 3, 38), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        cuda_ec.win_g1(limbs.to(torch.int64), torch.zeros((2, 1), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        cuda_ec.win_g1(limbs, torch.zeros((3, 1), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        cuda_ec.win_g1(limbs[:, :2], torch.zeros((2, 1), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        cuda_ec.win_g1(limbs.to("meta"), torch.zeros((2, 1), dtype=torch.int32, device="meta"))
+
+
+def test_cuda_source_constants_match_field():
+    """The kernel's __constant__ fold table and subtraction pad are the
+    field's tables (the kernel runs only on the card)."""
+    src = kernels.SOURCES["win_g1"].read_text()
+
+    def table(name):
+        body = re.search(name + r"\[[^=]*=\s*\{(.*?)\};", src, re.S).group(1)
+        return np.array([int(v) for v in re.findall(r"-?\d+", body)], dtype=np.int32)
+
+    f = PL.fq()
+    assert np.array_equal(table("FOLD"), f.fold.reshape(-1))
+    assert np.array_equal(table("SUB_PAD"), f.sub_pad)
+    assert f.fold.shape == (43, 37)
