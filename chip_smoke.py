@@ -8,23 +8,38 @@ In order, and with no phase's failure caught:
 1. **Build** — the native host library (``make -C native``) and every
    CUDA kernel of the port (one ``nvcc`` per source, all at once), with
    the build seconds and ``ptxas`` resource lines printed.
-2. **Kernels against their plain versions** — ``win_g1`` at K = 1000
-   (not a multiple of 128) on random r-torsion points with identity
-   rows and zero scalars, at 96- and 255-bit scalars: exact limb
-   equality with the plain PyTorch version on the card, and canonical
-   equality with native ``hb_g1_mul``.  Then both timed at the main
-   path's shape (K = 65,536, 96-bit scalars).
-3. **The main path at full width** — N = 1024 validators × 64 fresh
+2. **Kernels against their plain versions** — at K = 1000 (not a
+   multiple of 128) on random r-torsion points with identity rows and
+   zero scalars: ``win_g1`` at 96- and 255-bit scalars, ``win_g2`` and
+   ``scan_g1`` at 255 bits; exact limb equality with the plain PyTorch
+   version on the card, and canonical equality with native
+   ``hb_g1_mul`` / ``hb_g2_mul``.  ``win_g1`` is then timed at the
+   flush's shape (K = 65,536, 96-bit scalars).
+3. **The flush at full width** — N = 1024 validators × 64 fresh
    ciphertexts = 65,536 real BLS12-381 decryption shares per flush,
    settled by ``BatchingBackend(inner=CudaBackend()).prefetch`` three
-   times: every share must verify, with no fallback, and every kernel
+   times: every share must verify, with no fallback, and ``win_g1``
    must have been launched.  Two more flushes with one corrupted share,
    at 1024 × 64 (rejected by the fused check on the card) and at
    1024 × 4 (a product below ``G1_PRODUCT_DEVICE_MIN``, on the host),
    must cache ``False`` for exactly that obligation.
-4. **Report** — flush seconds, shares/s and stage walls, then the
-   ``kernels`` JSON line, the card's name and power limit, and the
-   result line ``{"ok": true, "device": {...}}`` last.
+4. **The verified DKG at full width** — ``VectorizedDkg(range(128),
+   42, Random(0xD6)).run(verify_honest=True)``: 236,672 commitment
+   entries in one fused G2 MSM on the card, settling 16,384 row and
+   2,097,152 value checks.  It must log no fault, complete all 128
+   parts and launch ``win_g2``; t + 1 signature shares must combine and
+   verify under the generated key set.  The same dealing with one row
+   cell perturbed must make the fused check return False on the card.
+   ``win_g2`` is then timed on the DKG's own points and scalars, once,
+   and its plain version once at the same shape (exact).
+5. **scan_g1** — lies on no production path: its entry point
+   ``scalar_mul_scan`` (the counterpart of ``scalar_mul_pallas``) is
+   driven once at K = 65,536 × 255 bits and checked against native on a
+   sample, then the kernel and its plain version are timed there.
+6. **Report** — the ``kernels`` JSON line (launches counted per path:
+   each path's counts are set to 0 just before it and read just after),
+   the card's name and power limit, and the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 Without a card, or outside a checkout of the repo, it exits non-zero
 and prints no result.
@@ -40,6 +55,8 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
+
 SEED = 0x5EED
 N_NODES = 1024
 GROUPS = 64
@@ -47,6 +64,10 @@ FLUSHES = 3
 K_CHECK = 1000
 K_TIME = N_NODES * GROUPS
 TIME_REPS = 3
+DKG_NODES = 128
+DKG_T = 42
+DKG_SEED = 0xD6
+SCAN_BITS = 255
 
 # The card's peak int32 multiply-add rate: the published fp32 rate of an
 # H100 SXM (67 TFLOP/s = 2 flops per FMA lane-clock) halved for the
@@ -56,6 +77,8 @@ TIME_REPS = 3
 PEAK_IMAD_PER_S = 67e12 / 2 / 2
 PEAK_BYTES_PER_S = 3.35e12
 FQ_LIMBS = 38
+G1_POINT_BYTES = 3 * FQ_LIMBS * 4
+G2_POINT_BYTES = 2 * G1_POINT_BYTES
 
 
 def fail(msg: str) -> None:
@@ -77,22 +100,40 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def win_g1_imads(k: int, nwin: int) -> int:
-    """int32 multiply-adds the windowed scalar multiplication needs on k
-    points with nwin 4-bit windows: a point takes 14 + 5·nwin complete
-    adds (the 16-entry table, then 4 doublings + 1 add per window), and
-    a complete add 12 full Fq products of 38 × 38 limb multiply-adds.
-    The reductions, sums and small products of the kernel's lazy
-    schedule are its own overhead and are not counted."""
-    point_add = 12 * FQ_LIMBS * FQ_LIMBS
-    return k * (14 + 5 * nwin) * point_add
-
-
-def win_g1_bound_ms(k: int, nwin: int):
-    ops_ms = win_g1_imads(k, nwin) / PEAK_IMAD_PER_S * 1e3
-    nbytes = k * (3 * 38 * 4) * 2 + k * nwin * 4  # points in + out, digits in
+def bound_ms(point_adds: int, fq_products: int, nbytes: int):
+    """The least time for ``point_adds`` complete additions of
+    ``fq_products`` full Fq products each (38 × 38 int32 multiply-adds;
+    the lazy schedule's folds, sums and small products are overhead of
+    the representation and not counted) moving ``nbytes`` (each input
+    read once, each output written once): the larger of the two."""
+    ops_ms = point_adds * fq_products * FQ_LIMBS * FQ_LIMBS / PEAK_IMAD_PER_S * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def windowed_bound(k: int, nwin: int, g2: bool):
+    """A windowed point takes 14 + 5·nwin complete adds (the 16-entry
+    table, then 4 doublings + 1 add per window); a G1 add is 12 Fq
+    products, a G2 add 12 Fq2 products = 36 Fq products.  Each doubling
+    is counted as a complete add, as the kernels compute it; a
+    dedicated doubling formula would need fewer products."""
+    pt = G2_POINT_BYTES if g2 else G1_POINT_BYTES
+    return bound_ms(k * (14 + 5 * nwin), 36 if g2 else 12, k * (2 * pt + 4 * nwin))
+
+
+def scan_bound(bits):
+    """k·P by double-and-add needs, for this run's msb-first bits
+    ``[K, nbits]``, bit_length − 1 doublings and popcount − 1 adds of P
+    a nonzero scalar (the first set bit just loads P), each counted as a
+    complete G1 add of 12 Fq products.  The kernel also computes the add
+    on every zero bit and drops it; that work is not needed and not
+    counted."""
+    k, nbits = bits.shape
+    set_bits = bits != 0
+    popcount = set_bits.sum(axis=1)
+    bit_length = np.where(popcount > 0, nbits - set_bits.argmax(axis=1), 0)
+    adds = int(np.maximum(bit_length - 1, 0).sum() + np.maximum(popcount - 1, 0).sum())
+    return bound_ms(adds, 12, k * (2 * G1_POINT_BYTES + 4 * nbits))
 
 
 def main() -> int:
@@ -119,7 +160,7 @@ def main() -> int:
         if not native_job.result():
             fail("make -C native produced no library")
         nvcc_s = nvcc_job.result()
-    log(f"build: {time.perf_counter() - t0:.1f} s wall; nvcc per kernel {nvcc_s}")
+    log(f"build: {time.perf_counter() - t0} s wall; nvcc per kernel {nvcc_s}")
     for name in kernels.SOURCES:
         for line in kernels.build_log(name).splitlines():
             if "registers" in line or "stack frame" in line:
@@ -129,84 +170,108 @@ def main() -> int:
 
     from hbbft_tpu_torch.crypto import fields as F
     from hbbft_tpu_torch.crypto import threshold as T
-    from hbbft_tpu_torch.crypto.curve import G1_GEN
+    from hbbft_tpu_torch.crypto.curve import G1_GEN, G2_GEN
     from hbbft_tpu_torch.harness.batching import BatchingBackend, DecObligation
+    from hbbft_tpu_torch.harness.dkg import VectorizedDkg, _bump
     from hbbft_tpu_torch.harness.workload import DecryptionFlushWorkload
+    from hbbft_tpu_torch.ops import limbs as LB
     from hbbft_tpu_torch.ops import packed_msm as PM
     from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
-    from hbbft_tpu_torch.ops.ec import g1_from_limbs
-
-    import numpy as np
+    from hbbft_tpu_torch.ops.ec import g1_from_limbs, g2_from_limbs
 
     rng = random.Random(SEED)
-    base = NT.g1_wire(G1_GEN)
+    max_err = {name: 0 for name in kernels.SOURCES}
 
-    def random_wires(k: int, n_ident: int):
-        wires = NT.g1_mul_many(base, [rng.randrange(1, F.R) for _ in range(k)])
-        ident = set(rng.sample(range(k), n_ident))
-        for i in ident:
+    def record_err(name: str, got, plain, what: str) -> None:
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
+        max_err[name] = max(max_err[name], err)
+        if err != 0:
+            fail(f"{name} differs from its plain version {what} (max |Δ| {err})")
+
+    def timed(fn, reps: int = 1):
+        """(result, ms per call) by CUDA events around ``reps`` calls."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end) / reps
+
+    def g1_points(k: int, n_ident: int):
+        wires = NT.g1_mul_many(NT.g1_wire(G1_GEN), [rng.randrange(1, F.R) for _ in range(k)])
+        for i in rng.sample(range(k), n_ident):
             wires[i] = bytes(96)
         arr = np.frombuffer(b"".join(wires), dtype=np.uint8).reshape(k, 96).copy()
-        return wires, torch.from_numpy(arr).to(dev)
+        return wires, PM._wire_points_g1(torch.from_numpy(arr).to(dev))
+
+    def g2_points(k: int, n_ident: int):
+        ks = PM.scalar_bytes_batch([rng.randrange(1, F.R) for _ in range(k)], 32)
+        raw = NT.g2_mul_many_raw(NT.g2_wire(G2_GEN), ks).reshape(k, 192)
+        raw[rng.sample(range(k), n_ident)] = 0
+        wires = [raw[i].tobytes() for i in range(k)]
+        return wires, PM._wire_points_g2(torch.from_numpy(raw.copy()).to(dev))
+
+    def scalars_with_zeros(k: int, bits: int):
+        scalars = [rng.randrange(0, 1 << bits) % F.R for _ in range(k)]
+        for i in rng.sample(range(k), 10):
+            scalars[i] = 0
+        return scalars
 
     def digits_for(scalars, nbytes: int):
         sc = torch.from_numpy(PM.scalar_bytes_batch(scalars, nbytes)).to(dev)
         return PM._scalar_digits(sc)
 
     # -- 2. kernels against their plain versions -------------------------
-    max_err = 0
-    wires, dev_wires = random_wires(K_CHECK, 10)
-    pts = PM._wire_points_g1(dev_wires)
+    wires, pts = g1_points(K_CHECK, 10)
     for bits in (96, 255):
-        scalars = [rng.randrange(0, 1 << bits) % F.R for _ in range(K_CHECK)]
-        for i in rng.sample(range(K_CHECK), 10):
-            scalars[i] = 0
+        scalars = scalars_with_zeros(K_CHECK, bits)
         dig = digits_for(scalars, (bits + 7) // 8)
         got = cuda_ec.win_g1(pts, dig)
-        plain = cuda_ec.windowed_plain(pts, dig)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
-        max_err = max(max_err, err)
-        if err != 0:
-            fail(f"win_g1 differs from its plain version at {bits}-bit scalars (max |Δ| {err})")
+        record_err("win_g1", got, cuda_ec.windowed_plain(pts, dig), f"at {bits}-bit scalars")
         host = got.cpu().numpy()
         for i in range(K_CHECK):
-            want = NT.g1_mul(wires[i], scalars[i])
-            if NT.g1_wire(g1_from_limbs(host[i])) != want:
+            if NT.g1_wire(g1_from_limbs(host[i])) != NT.g1_mul(wires[i], scalars[i]):
                 fail(f"win_g1 row {i} at {bits}-bit scalars is not k·P")
         log(f"win_g1 K={K_CHECK} {bits}-bit: exact vs plain, canonical vs native: ok")
+        if bits == 255:
+            sbits = torch.from_numpy(LB.scalars_to_bits(scalars, 255)).to(dev)
+            got = cuda_ec.scan_g1(pts, sbits)
+            record_err("scan_g1", got, cuda_ec.scan_plain(pts, sbits), "at 255-bit scalars")
+            host = got.cpu().numpy()
+            for i in range(K_CHECK):
+                if NT.g1_wire(g1_from_limbs(host[i])) != NT.g1_mul(wires[i], scalars[i]):
+                    fail(f"scan_g1 row {i} is not k·P")
+            log(f"scan_g1 K={K_CHECK} 255-bit: exact vs plain, canonical vs native: ok")
+    g2_wires, g2_pts = g2_points(K_CHECK, 10)
+    scalars = scalars_with_zeros(K_CHECK, 255)
+    dig = digits_for(scalars, 32)
+    got = cuda_ec.win_g2(g2_pts, dig)
+    record_err("win_g2", got, cuda_ec.windowed_g2_plain(g2_pts, dig), "at 255-bit scalars")
+    host = got.cpu().numpy()
+    for i in range(K_CHECK):
+        if NT.g2_wire(g2_from_limbs(host[i])) != NT.g2_mul(g2_wires[i], scalars[i]):
+            fail(f"win_g2 row {i} is not k·P")
+    log(f"win_g2 K={K_CHECK} 255-bit: exact vs plain, canonical vs native: ok")
+    del g2_pts, got
 
-    # timed at the main path's shape: 65,536 points, 96-bit scalars
-    _, dev_wires = random_wires(K_TIME, 64)
-    pts = PM._wire_points_g1(dev_wires)
+    # win_g1 timed at the flush's shape: 65,536 points, 96-bit scalars
+    _, pts = g1_points(K_TIME, 64)
     dig = digits_for([rng.randrange(1, 1 << 96) for _ in range(K_TIME)], 12)
-    nwin = dig.shape[1]
-    got = cuda_ec.win_g1(pts, dig)  # warm-up
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(TIME_REPS):
-        got = cuda_ec.win_g1(pts, dig)
-    end.record()
-    torch.cuda.synchronize()
-    kernel_ms = start.elapsed_time(end) / TIME_REPS
-    start.record()
-    plain = cuda_ec.windowed_plain(pts, dig)
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
-    err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
-    max_err = max(max_err, err)
-    if err != 0:
-        fail(f"win_g1 differs from its plain version at K={K_TIME} (max |Δ| {err})")
+    cuda_ec.win_g1(pts, dig)  # warm-up
+    got, win_g1_ms = timed(lambda: cuda_ec.win_g1(pts, dig), TIME_REPS)
+    plain, win_g1_plain_ms = timed(lambda: cuda_ec.windowed_plain(pts, dig))
+    record_err("win_g1", got, plain, f"at K={K_TIME}")
     del plain
-    bound_ms, bound_by = win_g1_bound_ms(K_TIME, nwin)
+    win_g1_bound = windowed_bound(K_TIME, dig.shape[1], g2=False)
     log(
-        f"win_g1 K={K_TIME} nwin={nwin}: kernel {kernel_ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), exact"
+        f"win_g1 K={K_TIME} nwin={dig.shape[1]}: kernel {win_g1_ms} ms, plain "
+        f"{win_g1_plain_ms} ms, bound {win_g1_bound[0]} ms ({win_g1_bound[1]}), exact"
     )
 
-    # -- 3. the main path at full width ----------------------------------
+    # -- 3. the flush at full width --------------------------------------
     work = DecryptionFlushWorkload(N_NODES, rng)
     inner = CudaBackend()
     batches = [work.obligations(b"flush-%d" % i, GROUPS) for i in range(FLUSHES)]
@@ -226,17 +291,15 @@ def main() -> int:
             fail("an honest share did not verify")
         if be.stats.cache_misses:
             fail(f"verdicts were not cached by the flush: {be.stats}")
-    launches = dict(cuda_ec.LAUNCHES)
-    for name, n in launches.items():
-        if n < 1:
-            fail(f"kernel {name} was not launched on the main path")
+    flush_launches = dict(cuda_ec.LAUNCHES)
+    if flush_launches["win_g1"] < 1:
+        fail("win_g1 was not launched on the flush path")
     flush_s = statistics.median(walls)
     log(
-        f"flush N={N_NODES} x {GROUPS} = {K_TIME} shares: median {flush_s:.3f} s "
-        f"({K_TIME / flush_s:.1f} shares/s), walls {[round(w, 3) for w in walls]}, "
-        f"launches {launches}"
+        f"flush N={N_NODES} x {GROUPS} = {K_TIME} shares: median {flush_s} s "
+        f"({K_TIME / flush_s} shares/s), walls {walls}, launches {flush_launches}"
     )
-    log("last_flush_phases " + json.dumps({k: round(v, 4) for k, v in phases[-1].items()}))
+    log("last_flush_phases " + json.dumps(phases[-1]))
 
     # one corrupted share, at the full width (the fused check runs on the
     # card and must reject) and at 1024 x 4 (a host-routed product): the
@@ -264,25 +327,112 @@ def main() -> int:
             fail(f"corrupted flush fell back beyond its one group: {be.stats}")
         log(
             f"corrupted flush N={N_NODES} x {groups} ({'card' if on_card else 'host'}): "
-            f"only obligation {bad} rejected in {corrupt_s:.3f} s; stats {be.stats}"
+            f"only obligation {bad} rejected in {corrupt_s} s; stats {be.stats}"
         )
 
-    # -- 4. report ------------------------------------------------------
+    # -- 4. the verified DKG at full width --------------------------------
+    dkg = VectorizedDkg(list(range(DKG_NODES)), DKG_T, random.Random(DKG_SEED))
+    cuda_ec.reset_launches()
+    t0 = time.perf_counter()
+    res = dkg.run(verify_honest=True)
+    dkg_s = time.perf_counter() - t0
+    dkg_launches = dict(cuda_ec.LAUNCHES)
+    entries = DKG_NODES * (DKG_T + 1) ** 2
+    checks = res.row_checks + res.value_checks
+    if not res.fault_log.is_empty():
+        fail(f"honest DKG logged faults: {res.fault_log}")
+    if len(res.complete) != DKG_NODES or res.msm_points != entries:
+        fail(f"DKG: {len(res.complete)} complete parts, {res.msm_points} MSM points")
+    if checks != DKG_NODES**2 + DKG_NODES**3:
+        fail(f"DKG settled {checks} checks")
+    if dkg_launches["win_g2"] < 1:
+        fail("win_g2 was not launched on the DKG path")
+    signers = range(0, 2 * DKG_T + 1, 2)[: DKG_T + 1]
+    sig = res.pk_set.combine_signatures({i: res.shares[i].sign(b"chip smoke") for i in signers})
+    if not res.pk_set.verify_signature(sig, b"chip smoke"):
+        fail("t + 1 signature shares of the generated keys did not verify")
+    log(
+        f"dkg N={DKG_NODES} t={DKG_T}: {entries} G2 points in one fused MSM, "
+        f"{res.row_checks} row + {res.value_checks} value checks verified in {dkg_s} s "
+        f"({checks / dkg_s} checks/s), launches {dkg_launches}; keys sign and verify"
+    )
+    log("dkg last_phases " + json.dumps(dkg.last_phases))
+
+    deal = dkg.last_dealing
+    rows = list(deal.rows)
+    rows[DKG_NODES // 2] = _bump(rows[DKG_NODES // 2], 3 * (DKG_T + 1) + 5)
+    before = cuda_ec.LAUNCHES["win_g2"]
+    t0 = time.perf_counter()
+    ok, _ = dkg._fused_check(rows, deal.vals, deal.commit_wires, deal.n_ackers)
+    if ok or cuda_ec.LAUNCHES["win_g2"] == before:
+        fail(f"the perturbed fused check was not rejected on the card (ok={ok})")
+    log(f"dkg perturbed row cell: fused check rejected on the card in {time.perf_counter() - t0} s")
+
+    # win_g2 timed on the DKG's own fused-MSM points and scalars
+    g2_wires, scalars, _ = dkg._fused_terms(deal.rows, deal.vals, deal.commit_wires, deal.n_ackers)
+    arr = np.frombuffer(b"".join(g2_wires), dtype=np.uint8).reshape(-1, 192).copy()
+    g2_pts = PM._wire_points_g2(torch.from_numpy(arr).to(dev))
+    dig = digits_for(scalars, 32)
+    got, win_g2_ms = timed(lambda: cuda_ec.win_g2(g2_pts, dig))
+    plain, win_g2_plain_ms = timed(lambda: cuda_ec.windowed_g2_plain(g2_pts, dig))
+    record_err("win_g2", got, plain, f"at the DKG's K={entries}")
+    del plain, got, g2_pts
+    win_g2_bound = windowed_bound(entries, dig.shape[1], g2=True)
+    log(
+        f"win_g2 K={entries} nwin={dig.shape[1]}: kernel {win_g2_ms} ms, plain "
+        f"{win_g2_plain_ms} ms, bound {win_g2_bound[0]} ms ({win_g2_bound[1]}), exact"
+    )
+
+    # -- 5. scan_g1 through its entry point, then timed --------------------
+    wires, pts = g1_points(K_TIME, 64)
+    scalars = [rng.randrange(0, F.R) for _ in range(K_TIME)]
+    host_bits = LB.scalars_to_bits(scalars, SCAN_BITS)
+    cuda_ec.reset_launches()
+    got = cuda_ec.scalar_mul_scan(pts, host_bits)
+    torch.cuda.synchronize()
+    scan_launches = dict(cuda_ec.LAUNCHES)
+    if scan_launches["scan_g1"] < 1:
+        fail("scalar_mul_scan did not launch scan_g1")
+    host = got.cpu().numpy()
+    for i in rng.sample(range(K_TIME), 200):
+        if NT.g1_wire(g1_from_limbs(host[i])) != NT.g1_mul(wires[i], scalars[i]):
+            fail(f"scalar_mul_scan row {i} is not k·P")
+    sbits = torch.from_numpy(host_bits).to(dev)
+    got, scan_ms = timed(lambda: cuda_ec.scan_g1(pts, sbits))
+    plain, scan_plain_ms = timed(lambda: cuda_ec.scan_plain(pts, sbits))
+    record_err("scan_g1", got, plain, f"at K={K_TIME}")
+    del plain, got
+    scan_b = scan_bound(host_bits)
+    log(
+        f"scan_g1 K={K_TIME} nbits={SCAN_BITS}: kernel {scan_ms} ms, plain "
+        f"{scan_plain_ms} ms, bound {scan_b[0]} ms ({scan_b[1]}), exact; "
+        f"entry point checked on 200 rows against native"
+    )
+
+    # -- 6. report ------------------------------------------------------
+    def row(name, replaces, launches, ms, plain_ms, bound):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": f"hbbft_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max_err[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "library_ms": None,  # no PyTorch call computes an EC scalar multiplication
+        }
+
     kernels_line = {
         "kernels": [
-            {
-                "name": "win_g1",
-                "route": "cuda",
-                "source": "hbbft_tpu_torch/csrc/win_g1.cu",
-                "replaces": "hbbft_tpu/ops/pallas_ec.py:230",
-                "launches": launches["win_g1"],
-                "max_abs_err": max_err,
-                "ms": round(kernel_ms, 4),
-                "plain_ms": round(plain_ms, 4),
-                "bound_ms": round(bound_ms, 4),
-                "bound_by": bound_by,
-                "library_ms": None,
-            }
+            row("win_g1", "hbbft_tpu/ops/pallas_ec.py:230", flush_launches["win_g1"],
+                win_g1_ms, win_g1_plain_ms, win_g1_bound),
+            row("win_g2", "hbbft_tpu/ops/pallas_ec.py:283", dkg_launches["win_g2"],
+                win_g2_ms, win_g2_plain_ms, win_g2_bound),
+            row("scan_g1", "hbbft_tpu/ops/pallas_ec.py:291", scan_launches["scan_g1"],
+                scan_ms, scan_plain_ms, scan_b),
         ]
     }
     log(json.dumps(kernels_line))

@@ -3,13 +3,18 @@
 A package of its own beside the JAX reference: it imports ``torch``,
 numpy and the standard library, never ``jax`` and never anything under
 ``hbbft_tpu``.  The host crypto it needs (fields, curve, hashing,
-pairing, threshold objects) is carried here as its own copy; the device
-half of the share-verification flush runs in torch on the card, with
-the windowed G1 scalar multiplication in a CUDA kernel written for
-Hopper (``csrc/win_g1.cu``).
+pairing, threshold objects, polynomials) is carried here as its own
+copy.  Two paths run on the card: the device half of the
+share-verification flush, with the windowed G1 scalar multiplication in
+a CUDA kernel written for Hopper (``csrc/win_g1.cu``), and the fused
+verification MSM of the dealerless DKG (``harness/dkg.py``), with the
+windowed G2 scalar multiplication in ``csrc/win_g2.cu``.  A third
+kernel, the bit-serial G1 ladder (``csrc/scan_g1.cu``), lies on no
+production path.
 
 Entry points run on the card unless the caller asks for the CPU:
-``ops.backend_cuda.CudaBackend()`` means ``torch.device("cuda")`` and
-raises when CUDA is absent; ``CudaBackend(device="cpu")`` runs every
-kernel's plain PyTorch version instead (the CPU tests do this).
+``ops.backend_cuda.CudaBackend()`` and ``harness.dkg.VectorizedDkg(...)``
+mean ``torch.device("cuda")`` and raise when CUDA is absent;
+``device="cpu"`` runs every kernel's plain PyTorch version instead (the
+CPU tests do this).
 """

@@ -1,17 +1,22 @@
-"""Threshold BLS objects of the decryption-share flush.
+"""Threshold BLS objects of the decryption-share flush and the DKG.
 
 The port's own copy of the subset of ``hbbft_tpu/crypto/threshold.py``
-that the share-verification flush needs: individual keys and the
-hybrid encryption that makes ciphertexts, secret/public key shares,
-signature and decryption shares, the ciphertext, and the random-linear-
-combination batch verifier.  Same scheme, same wire names, same bytes:
+that the share-verification flush and the verified DKG need: individual
+keys and the hybrid encryption that makes ciphertexts, secret/public
+key shares, signatures and signature and decryption shares, the
+ciphertext, the random-linear-combination batch verifier, and the
+``PublicKeySet`` a DKG generates.  Same scheme, same wire names, same
+bytes:
 
 - decryption shares dᵢ = skᵢ·U ∈ G1; verify e(dᵢ, P₂) == e(U, pkᵢ);
+- signatures live on G1 (``hash_to_g1``): σᵢ = skᵢ·H(m), combined by
+  Lagrange interpolation of the lowest t+1 shares, verified against
+  the master key pk = commitment(0);
 - batch verification: k shares verify with ONE product-pairing check
   via deterministic (Fiat–Shamir) random linear combination.
 
-``PublicKeySet``, ``SecretKeySet`` and the polynomial layer are not
-part of this slice.
+``SecretKeySet`` (trusted dealing) is not part of the port: keys come
+from the DKG.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from . import fields as F
 from .curve import G1, G1_GEN, G2, G2_GEN, g1_multi_exp, g2_multi_exp
 from .hashing import DST_ENC, DST_POK, DST_SIG, hash_to_fr, hash_to_g1, sha256, xor_stream
 from .pairing import pairing_check
+from .poly import Commitment, lagrange_coefficients_at_zero
 from ..core.serialize import dumps, wire
 
 R = F.R
@@ -30,6 +36,17 @@ R = F.R
 
 def _rand_fr(rng) -> int:
     return rng.randrange(R - 1) + 1
+
+
+@wire("Sig")
+@dataclasses.dataclass(frozen=True)
+class Signature:
+    """A (combined) BLS signature in G1."""
+
+    point: G1
+
+    def to_bytes(self) -> bytes:
+        return self.point.to_bytes()
 
 
 @wire("SigShare")
@@ -100,6 +117,9 @@ class PublicKey:
         c = hash_to_fr(DST_POK + u.to_bytes() + sha256(v) + a.to_bytes())
         z = (a_r + c * r) % R
         return Ciphertext(u, v, c, z)
+
+    def to_bytes(self) -> bytes:
+        return self.pk1.to_bytes() + self.pk2.to_bytes()
 
 
 @wire("SecretKey")
@@ -186,3 +206,38 @@ def batch_verify_shares(
     u_pks, u_coeffs = aggregate_by_point(pks, coeffs)
     agg_pk = g2_multi_exp(u_pks, u_coeffs)
     return pairing_check([(agg_share, G2_GEN), (-base, agg_pk)])
+
+
+@wire("PublicKeySet")
+@dataclasses.dataclass(frozen=True)
+class PublicKeySet:
+    """Master public key material: the G2 coefficient commitment (which
+    yields every public key share) and the G1 master key (encryption
+    target)."""
+
+    commitment: Commitment
+    master_g1: G1
+
+    @property
+    def threshold(self) -> int:
+        return self.commitment.degree
+
+    def public_key(self) -> PublicKey:
+        return PublicKey(self.master_g1, self.commitment.evaluate(0))
+
+    def public_key_share(self, i: int) -> PublicKeyShare:
+        """Node i's key share: the commitment evaluated at i+1."""
+        return PublicKeyShare(self.commitment.evaluate(i + 1))
+
+    def combine_signatures(self, shares: Dict[int, SignatureShare]) -> Signature:
+        """Lagrange-combine more than t shares; the deterministic subset
+        is the lowest t+1 indices."""
+        idxs = sorted(shares)[: self.threshold + 1]
+        if len(idxs) <= self.threshold:
+            raise ValueError("not enough signature shares")
+        lams = lagrange_coefficients_at_zero([i + 1 for i in idxs])
+        return Signature(g1_multi_exp([shares[i].point for i in idxs], lams))
+
+    def verify_signature(self, sig: Signature, msg: bytes) -> bool:
+        h = hash_to_g1(msg, DST_SIG)
+        return pairing_check([(sig.point, G2_GEN), (-h, self.commitment.evaluate(0))])

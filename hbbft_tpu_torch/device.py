@@ -7,11 +7,23 @@ The CPU is used only when the caller names it (``device="cpu"``).
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import time
+from typing import Dict, Optional, Union
 
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
+
+
+def stamp(phases: Dict[str, float], device: torch.device, name: str, t0: float) -> float:
+    """Add the wall since ``t0`` to ``phases[name]`` and return now.  On
+    a CUDA device it first waits for the card, so a stage's wall covers
+    the kernels it queued."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    now = time.perf_counter()
+    phases[name] = phases.get(name, 0.0) + now - t0
+    return now
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

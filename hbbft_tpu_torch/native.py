@@ -3,8 +3,9 @@
 ``native/libhbbft_native.so`` (built from ``native/bls12_381.cpp`` and
 ``native/hbbft_native.cpp`` by ``make -C native``) is repo source
 outside the JAX package.  This is the port's own binding of the calls
-the share-verification flush needs — G1/G2 products, the G1 and G2 MSMs,
-the product pairing check and hash-to-G1 — and of the raw wire format:
+the share-verification flush and the DKG need — G1/G2 products, the
+shared-base G1/G2 combs, the G1 and G2 MSMs, the Fr matrix product, the
+product pairing check and hash-to-G1 — and of the raw wire format:
 
 - G1: 96 bytes ``x || y`` big-endian affine, all-zero = infinity;
 - G2: 192 bytes ``x.c0 || x.c1 || y.c0 || y.c1``, all-zero = infinity;
@@ -60,6 +61,8 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
         "hb_g1_mul": ([b, b, u8p], None),
         "hb_g2_mul": ([b, b, u8p], None),
         "hb_g1_mul_many": ([u64, b, b, u8p], None),
+        "hb_g2_mul_many": ([u64, b, u8p, u8p], None),
+        "hb_fr_matmul": ([u64, u64, u64, u8p, u8p, u8p], None),
         "hb_g1_msm": ([u64, b, b, u8p], None),
         "hb_g2_msm": ([u64, b, b, u8p], None),
         "hb_pairing_check": ([u64, b, b], ctypes.c_int),
@@ -177,6 +180,29 @@ def g1_mul_many(pt_wire: bytes, ks: Sequence[int]) -> List[bytes]:
     _load().hb_g1_mul_many(n, pt_wire, kbuf, _u8p(out))
     raw = out.tobytes()
     return [raw[i * 96 : (i + 1) * 96] for i in range(n)]
+
+
+def g2_mul_many_raw(pt_wire: bytes, ks_be: np.ndarray) -> np.ndarray:
+    """[k₀·P, k₁·P, …] for ONE shared G2 base via the fixed-base comb.
+    ``ks_be``: uint8 array of n×32 big-endian scalars; returns the raw
+    n×192 wire buffer."""
+    ks_be = np.ascontiguousarray(ks_be, dtype=np.uint8).reshape(-1)
+    n = len(ks_be) // 32
+    out = np.empty(n * 192, dtype=np.uint8)
+    _load().hb_g2_mul_many(n, pt_wire, _u8p(ks_be), _u8p(out))
+    return out
+
+
+def fr_matmul(a: np.ndarray, b_: np.ndarray, n: int, k: int, m: int) -> np.ndarray:
+    """[n×k]·[k×m] over the scalar field Fr — entries are 32-byte
+    big-endian scalars in flat uint8 buffers."""
+    a = np.ascontiguousarray(a, dtype=np.uint8).reshape(-1)
+    b_ = np.ascontiguousarray(b_, dtype=np.uint8).reshape(-1)
+    if len(a) != n * k * 32 or len(b_) != k * m * 32:
+        raise ValueError("fr_matmul buffer shape mismatch")
+    out = np.empty(n * m * 32, dtype=np.uint8)
+    _load().hb_fr_matmul(n, k, m, _u8p(a), _u8p(b_), _u8p(out))
+    return out
 
 
 def _msm(fn, width: int, pts_wire: Sequence[bytes], scalars: Sequence[int]) -> bytes:

@@ -1,12 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one CUDA C++ source under ``hbbft_tpu_torch/csrc/`` with
-a plain C entry point.  It is compiled on first use by ``nvcc`` for
+a plain C entry point; the sources share the field routines of
+``csrc/bls_fq.cuh``.  A kernel is compiled on first use by ``nvcc`` for
 Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a shared
 library under ``build/hbbft_tpu_torch/`` at the repo root, and loaded
-with ``ctypes``.  The library's file name carries a hash of the source
-and the flags, so an edited source is never shadowed by a stale build;
-an ``fcntl`` lock serialises concurrent builders.  ``ptxas -v`` output
+with ``ctypes``.  The library's file name carries a hash of the source,
+of every header beside it (``csrc/*.cuh``) and of the flags, so an
+edited source or header is never shadowed by a stale build; an
+``fcntl`` lock serialises concurrent builders.  ``ptxas -v`` output
 (registers, stack, spills) lands in a ``.log`` beside each library.
 
 Nothing is built or loaded at import time: the CPU tests import every
@@ -30,8 +32,9 @@ from typing import Dict
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG_DIR.parent / "build" / "hbbft_tpu_torch"
 
+CSRC = PKG_DIR / "csrc"
 SOURCES: Dict[str, pathlib.Path] = {
-    "win_g1": PKG_DIR / "csrc" / "win_g1.cu",
+    name: CSRC / f"{name}.cu" for name in ("win_g1", "win_g2", "scan_g1")
 }
 
 NVCC_FLAGS = [
@@ -58,9 +61,12 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> pathlib.Path:
-    src = SOURCES[name].read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    src = SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> float:

@@ -98,24 +98,26 @@ def scalars_to_bits(ks: Sequence[int], nbits: int = 255) -> np.ndarray:
 def _carry_round(x: torch.Tensor) -> torch.Tensor:
     """One parallel carry round: [..., W] → [..., W+1].  Works on
     negative limbs too (``>>`` on int32 is an arithmetic shift)."""
-    lo = x & LIMB_MASK
-    hi = x >> LIMB_BITS
-    zpad = x.new_zeros(x.shape[:-1] + (1,))
-    return torch.cat([lo, zpad], dim=-1) + torch.cat([zpad, hi], dim=-1)
+    out = torch.nn.functional.pad(x & LIMB_MASK, (0, 1))
+    out[..., 1:] += x >> LIMB_BITS
+    return out
 
 
 def _conv(a: torch.Tensor, b: torch.Tensor, L: int) -> torch.Tensor:
     """Schoolbook product [..., L] × [..., L] → [..., 2L−1].
 
-    The [L, L] outer product is skewed so that row i shifts right by i
-    (pad each row with L zeros, flatten, drop the last L, re-view as
-    [L, 2L−1]); summing the rows then gives every diagonal sum at
-    once.  Partial products < 2^24, sums < 2^30."""
+    The [L, L] outer product is padded to [L, 2L] and re-viewed with a
+    row stride of 2L−1, so row i reads shifted right by i (the padding
+    zeros fill the gaps); summing the rows then gives every diagonal
+    sum at once, with no copy beyond the padding.  Partial products
+    < 2^24, sums < 2^30."""
     rows = a.unsqueeze(-1) * b.unsqueeze(-2)  # [..., L, L]
-    batch = rows.shape[:-2]
-    padded = torch.cat([rows, rows.new_zeros(batch + (L, L))], dim=-1)
-    skew = padded.reshape(batch + (2 * L * L,))[..., : L * (2 * L - 1)]
-    return skew.reshape(batch + (L, 2 * L - 1)).sum(dim=-2, dtype=torch.int32)
+    padded = torch.nn.functional.pad(rows, (0, L))  # [..., L, 2L], contiguous
+    batch = padded.shape[:-2]
+    skew = padded.as_strided(
+        batch + (L, 2 * L - 1), padded.stride()[:-2] + (2 * L - 1, 1)
+    )
+    return skew.sum(dim=-2, dtype=torch.int32)
 
 
 class ModField:

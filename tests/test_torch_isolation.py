@@ -2,7 +2,8 @@
 
 - every module of ``hbbft_tpu_torch`` (and ``chip_smoke.py``) imports
   in a fresh interpreter where ``jax`` and ``hbbft_tpu`` are blocked;
-- no source file of the port, nor ``chip_smoke.py``, has an import of
+- no source file of the port, nor ``chip_smoke.py`` or the port's
+  measurement scripts (``scripts/torch_*.py``), has an import of
   ``jax`` or of ``hbbft_tpu`` (as opposed to ``hbbft_tpu_torch``);
 - the entry points default to the card and raise without CUDA.
 """
@@ -33,7 +34,8 @@ print(len(names))
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + scripts
 
 
 def test_every_module_imports_without_jax_or_reference():
@@ -45,7 +47,7 @@ def test_every_module_imports_without_jax_or_reference():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 25
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -64,8 +66,11 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_cuda_backend_raises_without_cuda(monkeypatch):
+    import random
+
     from hbbft_tpu_torch.device import resolve_device
     from hbbft_tpu_torch.harness.batching import BatchingBackend
+    from hbbft_tpu_torch.harness.dkg import VectorizedDkg
     from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -75,4 +80,7 @@ def test_cuda_backend_raises_without_cuda(monkeypatch):
         BatchingBackend()  # the default inner backend is the card
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda:0")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VectorizedDkg(range(4), 1, random.Random(0))  # the DKG's default is the card
+    assert VectorizedDkg(range(4), 1, random.Random(0), device="cpu").device.type == "cpu"
     assert CudaBackend(device="cpu").device == torch.device("cpu")

@@ -5,8 +5,9 @@ must give the reference Pallas kernel's limbs exactly
 (``pallas_ec.scalar_mul_windowed(..., interpret=True)``; that compile
 takes minutes on a CPU, so the exact-limb case is marked slow) and the
 reference host curve's k·P by wire bytes (tier-1, at the flush's
-96-bit scalar width).  The CUDA source's constant tables must equal the Python
-field's, since the kernel cannot run here.
+96-bit scalar width).  The constant tables of the kernels' shared
+header must equal the Python field's, since the kernels cannot run
+here, and an edit to that header must change every kernel's build tag.
 """
 
 import random
@@ -102,9 +103,14 @@ def test_win_g1_checks_its_inputs():
 
 
 def test_cuda_source_constants_match_field():
-    """The kernel's __constant__ fold table and subtraction pad are the
-    field's tables (the kernel runs only on the card)."""
-    src = kernels.SOURCES["win_g1"].read_text()
+    """The kernels' __constant__ fold table and subtraction pad, in the
+    shared header every kernel source includes, are the field's tables
+    (the kernels run only on the card)."""
+    header = kernels.CSRC / "bls_fq.cuh"
+    for name, path in kernels.SOURCES.items():
+        assert '#include "bls_fq.cuh"' in path.read_text(), name
+        assert "FOLD" not in path.read_text(), name  # one copy of the tables
+    src = header.read_text()
 
     def table(name):
         body = re.search(name + r"\[[^=]*=\s*\{(.*?)\};", src, re.S).group(1)
@@ -114,3 +120,20 @@ def test_cuda_source_constants_match_field():
     assert np.array_equal(table("FOLD"), f.fold.reshape(-1))
     assert np.array_equal(table("SUB_PAD"), f.sub_pad)
     assert f.fold.shape == (43, 37)
+
+
+def test_header_edit_changes_every_kernel_tag(tmp_path, monkeypatch):
+    """A library's build tag hashes its source and the shared headers,
+    so an edit to bls_fq.cuh never leaves a stale build in place."""
+    for path in kernels.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(
+        kernels, "SOURCES", {n: tmp_path / p.name for n, p in kernels.SOURCES.items()}
+    )
+    before = {n: kernels.lib_path(n) for n in kernels.SOURCES}
+    assert set(before) == {"win_g1", "win_g2", "scan_g1"}
+    assert len(set(before.values())) == 3
+    header = tmp_path / "bls_fq.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: kernels.lib_path(n) for n in kernels.SOURCES}
+    assert all(after[n] != before[n] for n in before)
