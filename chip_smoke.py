@@ -14,7 +14,16 @@ In order, and with no phase's failure caught:
    ``scan_g1`` at 255 bits; exact limb equality with the plain PyTorch
    version on the card, and canonical equality with native
    ``hb_g1_mul`` / ``hb_g2_mul``.  ``win_g1`` is then timed at the
-   flush's shape (K = 65,536, 96-bit scalars).
+   flush's shape (K = 65,536, 96-bit scalars), and as four launches of
+   16,384 points on the four streams of a 4-shard mesh (exact against
+   the single launch).
+2b. **ring_permute against its plain version** — on a 4-shard mesh
+   (shard j on card j % device_count), random int32 buffers of [64, 3,
+   38] (the mesh flush's group partials) and [5, 3, 38] (not a whole
+   number of 16-byte words per shard): byte equality, also with a long
+   kernel queued on each shard's stream in turn.  With one card the
+   cross-card leg is not run and a line says so.  The kernel, the
+   plain version and ``Tensor.copy_`` are timed per launch.
 3. **The flush at full width** — N = 1024 validators × 64 fresh
    ciphertexts = 65,536 real BLS12-381 decryption shares per flush,
    settled by ``BatchingBackend(inner=CudaBackend()).prefetch`` three
@@ -23,6 +32,18 @@ In order, and with no phase's failure caught:
    at 1024 × 64 (rejected by the fused check on the card) and at
    1024 × 4 (a product below ``G1_PRODUCT_DEVICE_MIN``, on the host),
    must cache ``False`` for exactly that obligation.
+3b. **The mesh flush at full width** — the same three batches through
+   ``BatchingBackend(inner=CudaBackend(mesh=make_mesh(4))).prefetch``:
+   4 shards of 16,384 points, the [64, 3, 38] group partials
+   ring-reduced in 3 rounds.  Every flush must verify every share with
+   no fallback, launch ``win_g1`` 4 times and ``ring_permute`` 12
+   times, leave the four shards' replicated sums the same points and
+   give the single-device flush's verdicts; the corrupted 1024 × 64
+   batch must be rejected on the card and attributed as the
+   single-device flush attributed it.
+3c. **The flat sharded MSM** — ``CudaBackend(mesh=make_mesh(4)).g1_msm``
+   at K = 65,536 with 128-bit scalars (identity rows, zero scalars)
+   must equal native ``hb_g1_msm``.
 4. **The verified DKG at full width** — ``VectorizedDkg(range(128),
    42, Random(0xD6)).run(verify_honest=True)``: 236,672 commitment
    entries in one fused G2 MSM on the card, settling 16,384 row and
@@ -68,6 +89,10 @@ DKG_NODES = 128
 DKG_T = 42
 DKG_SEED = 0xD6
 SCAN_BITS = 255
+MESH_SHARDS = 4
+RING_ROWS = (GROUPS, 5)
+RING_REPS = 200
+FLAT_BITS = 128
 
 # The card's peak int32 multiply-add rate: the published fp32 rate of an
 # H100 SXM (67 TFLOP/s = 2 flops per FMA lane-clock) halved for the
@@ -76,6 +101,8 @@ SCAN_BITS = 255
 # Memory: 3.35 TB/s.
 PEAK_IMAD_PER_S = 67e12 / 2 / 2
 PEAK_BYTES_PER_S = 3.35e12
+# NVLink between two cards of one host: 900 GB/s in all, 450 GB/s each way
+NVLINK_BYTES_PER_S = 450e9
 FQ_LIMBS = 38
 G1_POINT_BYTES = 3 * FQ_LIMBS * 4
 G2_POINT_BYTES = 2 * G1_POINT_BYTES
@@ -119,6 +146,14 @@ def windowed_bound(k: int, nwin: int, g2: bool):
     dedicated doubling formula would need fewer products."""
     pt = G2_POINT_BYTES if g2 else G1_POINT_BYTES
     return bound_ms(k * (14 + 5 * nwin), 36 if g2 else 12, k * (2 * pt + 4 * nwin))
+
+
+def ring_bound(nbytes: int, cross_card: bool):
+    """One ring launch reads ``nbytes`` once and writes them once: over
+    HBM on one card; across cards the write crosses NVLink one way."""
+    hbm_ms = 2 * nbytes / PEAK_BYTES_PER_S * 1e3
+    link_ms = nbytes / NVLINK_BYTES_PER_S * 1e3 if cross_card else 0.0
+    return (max(hbm_ms, link_ms), "bytes")
 
 
 def scan_bound(bits):
@@ -170,7 +205,7 @@ def main() -> int:
 
     from hbbft_tpu_torch.crypto import fields as F
     from hbbft_tpu_torch.crypto import threshold as T
-    from hbbft_tpu_torch.crypto.curve import G1_GEN, G2_GEN
+    from hbbft_tpu_torch.crypto.curve import G1, G1_GEN, G2_GEN
     from hbbft_tpu_torch.harness.batching import BatchingBackend, DecObligation
     from hbbft_tpu_torch.harness.dkg import VectorizedDkg, _bump
     from hbbft_tpu_torch.harness.workload import DecryptionFlushWorkload
@@ -178,6 +213,7 @@ def main() -> int:
     from hbbft_tpu_torch.ops import packed_msm as PM
     from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
     from hbbft_tpu_torch.ops.ec import g1_from_limbs, g2_from_limbs
+    from hbbft_tpu_torch.parallel.mesh import make_mesh
 
     rng = random.Random(SEED)
     max_err = {name: 0 for name in kernels.SOURCES}
@@ -271,6 +307,91 @@ def main() -> int:
         f"{win_g1_plain_ms} ms, bound {win_g1_bound[0]} ms ({win_g1_bound[1]}), exact"
     )
 
+    # the same points as the mesh flush runs them: four launches of
+    # K/4 points, one on each shard's stream
+    mesh = make_mesh(MESH_SHARDS)
+    quarter = K_TIME // MESH_SHARDS
+    shard_in = [
+        (pts[j * quarter : (j + 1) * quarter].to(d), dig[j * quarter : (j + 1) * quarter].to(d))
+        for j, d in enumerate(mesh.devices)
+    ]
+
+    def four_streams():
+        mesh.fork()
+        outs = []
+        for j, (p, d) in enumerate(shard_in):
+            with mesh.on(j):
+                outs.append(cuda_ec.win_g1(p, d))
+        return mesh.join(outs)
+
+    four_streams()  # warm-up
+    outs, four_ms = timed(four_streams, TIME_REPS)
+    record_err("win_g1", torch.cat([o.to(dev) for o in outs]), got, "on four streams")
+    log(
+        f"win_g1 on {MESH_SHARDS} streams of {mesh} x {quarter} points: {four_ms} ms "
+        f"span (one launch of {K_TIME}: {win_g1_ms} ms), exact against the one launch"
+    )
+    del outs, shard_in
+
+    # -- 2b. ring_permute against its plain version -----------------------
+    cross_card = len(set(mesh.devices)) > 1
+    if not cross_card:
+        log(f"ring_permute: cross-card leg not run: {torch.cuda.device_count()} card")
+    gen = np.random.default_rng(SEED)
+    for rows in RING_ROWS:
+        bufs = [
+            torch.from_numpy(
+                gen.integers(-(2**31), 2**31, size=(rows, 3, FQ_LIMBS), dtype=np.int32)
+            ).to(d)
+            for d in mesh.devices
+        ]
+        plain = cuda_ec.ring_permute_plain(bufs, mesh)
+        for late in [None] + list(range(MESH_SHARDS)):
+            if late is not None:  # a long kernel queued on one shard's stream
+                with mesh.on(late):
+                    torch.cuda._sleep(5_000_000)
+            got = mesh.join(cuda_ec.ring_permute(bufs, mesh))
+            for j in range(MESH_SHARDS):
+                record_err(
+                    "ring_permute", got[j], plain[j].to(got[j].device),
+                    f"at [{rows}, 3, 38], shard {j}, late stream {late}",
+                )
+        log(
+            f"ring_permute {mesh} [{rows}, 3, 38] int32: byte-equal to plain with every "
+            f"stream order tried ({'across cards' if cross_card else 'one card'})"
+        )
+    # per launch at the flush's message shape: the kernel (one launch on
+    # the current stream), its plain version (a ring step / shards) and
+    # the library copy
+    msg = [
+        torch.from_numpy(
+            gen.integers(-(2**31), 2**31, size=(GROUPS, 3, FQ_LIMBS), dtype=np.int32)
+        ).to(d)
+        for d in mesh.devices
+    ]
+    src, dst = msg[0], torch.empty_like(msg[1])
+    cur = torch.cuda.current_stream(src.device)
+    cuda_ec.ring_copy(src, dst, cur)  # warm-up
+    _, ring_ms = timed(lambda: cuda_ec.ring_copy(src, dst, cur), RING_REPS)
+    record_err("ring_permute", dst, src.to(dst.device), "timed copy")
+    _, ring_lib_ms = timed(lambda: dst.copy_(src), RING_REPS)
+    _, ring_plain_ms = timed(lambda: cuda_ec.ring_permute_plain(msg, mesh), RING_REPS)
+    ring_plain_ms /= MESH_SHARDS
+
+    def ring_step():
+        mesh.fork()
+        return mesh.join(cuda_ec.ring_permute(msg, mesh))
+
+    _, step_ms = timed(ring_step, RING_REPS)
+    ring_b = ring_bound(src.numel() * src.element_size(), src.device != dst.device)
+    log(
+        f"ring_permute [{GROUPS}, 3, 38] per launch: kernel {ring_ms} ms, plain "
+        f"{ring_plain_ms} ms, copy_ {ring_lib_ms} ms, bound {ring_b[0]} ms ({ring_b[1]}); "
+        f"a whole ring step over {MESH_SHARDS} shards (events and allocation included) "
+        f"{step_ms} ms"
+    )
+    del msg, bufs, plain, got
+
     # -- 3. the flush at full width --------------------------------------
     work = DecryptionFlushWorkload(N_NODES, rng)
     inner = CudaBackend()
@@ -300,10 +421,12 @@ def main() -> int:
         f"({K_TIME / flush_s} shares/s), walls {walls}, launches {flush_launches}"
     )
     log("last_flush_phases " + json.dumps(phases[-1]))
+    log("flush launch-stage walls " + json.dumps([p["launch"] for p in phases]))
 
     # one corrupted share, at the full width (the fused check runs on the
     # card and must reject) and at 1024 x 4 (a host-routed product): the
     # fallback must attribute it to exactly its obligation
+    corrupt = {}
     for groups in (GROUPS, 4):
         obs = work.obligations(b"corrupt-%d" % groups, groups)
         bad = (groups // 2) * N_NODES + 17
@@ -325,10 +448,94 @@ def main() -> int:
             fail(f"corrupted flush verdicts wrong at {wrong[:10]}")
         if be.stats.fallback_groups != 1 or be.stats.fallback_items != N_NODES:
             fail(f"corrupted flush fell back beyond its one group: {be.stats}")
+        corrupt[groups] = (obs, verdicts)
         log(
             f"corrupted flush N={N_NODES} x {groups} ({'card' if on_card else 'host'}): "
             f"only obligation {bad} rejected in {corrupt_s} s; stats {be.stats}"
         )
+
+    # -- 3b. the mesh flush at full width --------------------------------
+    mesh_inner = CudaBackend(mesh=mesh)
+
+    def mesh_flush(obs):
+        """One mesh flush: (verdicts, wall, phases, stats, launches)."""
+        be = BatchingBackend(inner=mesh_inner)
+        before = dict(cuda_ec.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        be.prefetch(obs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: cuda_ec.LAUNCHES[k] - before[k] for k in before}
+        verdicts = [be.verify_dec_share(o.pk_share, o.share, o.ciphertext) for o in obs]
+        return verdicts, wall, dict(be.last_flush_phases), be.stats, launches
+
+    def same_points(sums) -> bool:
+        host = [s.cpu().numpy() for s in sums]
+        want = [NT.g1_wire(g1_from_limbs(host[0][g])) for g in range(host[0].shape[0])]
+        return all(
+            NT.g1_wire(g1_from_limbs(h[g])) == want[g] for h in host[1:] for g in range(len(want))
+        )
+
+    want_launches = {"win_g1": MESH_SHARDS, "ring_permute": MESH_SHARDS * (MESH_SHARDS - 1)}
+    cuda_ec.reset_launches()
+    mesh_walls, mesh_phases = [], []
+    for obs in batches:
+        verdicts, wall, ph, stats, launches = mesh_flush(obs)
+        mesh_walls.append(wall)
+        mesh_phases.append(ph)
+        if stats.fallback_items or stats.fallback_groups or stats.cache_misses:
+            fail(f"honest mesh flush fell back or missed: {stats}")
+        if not all(verdicts):
+            fail("an honest share did not verify on the mesh")
+        if any(launches[k] != n for k, n in want_launches.items()):
+            fail(f"mesh flush launched {launches}, not {want_launches} and more")
+        if len(mesh_inner.last_shard_sums) != MESH_SHARDS or not same_points(
+            mesh_inner.last_shard_sums
+        ):
+            fail("the shards' replicated group sums differ")
+    mesh_launches = dict(cuda_ec.LAUNCHES)
+    # the single-device flushes verified every share of the same batches
+    mesh_s = statistics.median(mesh_walls)
+    log(
+        f"mesh flush {mesh} N={N_NODES} x {GROUPS} = {K_TIME} shares: median {mesh_s} s "
+        f"({K_TIME / mesh_s} shares/s), walls {mesh_walls}, launches {mesh_launches}; "
+        f"every share verified, shards' sums equal, verdicts as the single-device flush"
+    )
+    log("mesh last_flush_phases " + json.dumps(mesh_phases[-1]))
+    log("mesh flush launch-stage walls " + json.dumps([p["launch"] for p in mesh_phases]))
+    log("mesh flush finalize-stage walls " + json.dumps([p["finalize"] for p in mesh_phases]))
+    log("single-device finalize-stage walls " + json.dumps([p["finalize"] for p in phases]))
+
+    obs, single_verdicts = corrupt[GROUPS]
+    verdicts, wall, _, stats, launches = mesh_flush(obs)
+    if launches["win_g1"] != MESH_SHARDS or launches["ring_permute"] != want_launches["ring_permute"]:
+        fail(f"the corrupted mesh flush did not run on the mesh: {launches}")
+    if verdicts != single_verdicts or verdicts.count(False) != 1:
+        fail("the corrupted mesh flush's verdicts differ from the single-device flush's")
+    if stats.fallback_groups != 1 or stats.fallback_items != N_NODES:
+        fail(f"corrupted mesh flush fell back beyond its one group: {stats}")
+    log(
+        f"corrupted mesh flush N={N_NODES} x {GROUPS}: rejected on the card, only "
+        f"obligation {verdicts.index(False)} attributed, as single-device, in {wall} s"
+    )
+
+    # -- 3c. the flat sharded MSM ------------------------------------------
+    flat_wires = NT.g1_mul_many(NT.g1_wire(G1_GEN), [rng.randrange(1, F.R) for _ in range(K_TIME)])
+    for i in rng.sample(range(K_TIME), 64):
+        flat_wires[i] = bytes(96)
+    flat_pts = [NT.g1_unwire(w, G1) for w in flat_wires]
+    flat_scalars = scalars_with_zeros(K_TIME, FLAT_BITS)
+    before = cuda_ec.LAUNCHES["win_g1"]
+    t0 = time.perf_counter()
+    total = mesh_inner.g1_msm(flat_pts, flat_scalars)
+    flat_s = time.perf_counter() - t0
+    if cuda_ec.LAUNCHES["win_g1"] - before != MESH_SHARDS:
+        fail("the flat MSM did not run on the mesh")
+    if NT.g1_wire(total) != NT.g1_msm(flat_wires, flat_scalars):
+        fail("the flat sharded MSM differs from native")
+    log(f"flat sharded MSM K={K_TIME} {FLAT_BITS}-bit on {mesh}: equal to native, {flat_s} s")
+    del flat_pts, flat_wires
 
     # -- 4. the verified DKG at full width --------------------------------
     dkg = VectorizedDkg(list(range(DKG_NODES)), DKG_T, random.Random(DKG_SEED))
@@ -410,7 +617,8 @@ def main() -> int:
     )
 
     # -- 6. report ------------------------------------------------------
-    def row(name, replaces, launches, ms, plain_ms, bound):
+    def row(name, replaces, launches, ms, plain_ms, bound, library_ms=None):
+        # library_ms None: no PyTorch call computes an EC scalar multiplication
         return {
             "name": name,
             "route": "cuda",
@@ -422,7 +630,7 @@ def main() -> int:
             "plain_ms": plain_ms,
             "bound_ms": bound[0],
             "bound_by": bound[1],
-            "library_ms": None,  # no PyTorch call computes an EC scalar multiplication
+            "library_ms": library_ms,
         }
 
     kernels_line = {
@@ -433,6 +641,8 @@ def main() -> int:
                 win_g2_ms, win_g2_plain_ms, win_g2_bound),
             row("scan_g1", "hbbft_tpu/ops/pallas_ec.py:291", scan_launches["scan_g1"],
                 scan_ms, scan_plain_ms, scan_b),
+            row("ring_permute", "hbbft_tpu/ops/pallas_ec.py:882",
+                mesh_launches["ring_permute"], ring_ms, ring_plain_ms, ring_b, ring_lib_ms),
         ]
     }
     log(json.dumps(kernels_line))

@@ -8,13 +8,16 @@ copy.  Two paths run on the card: the device half of the
 share-verification flush, with the windowed G1 scalar multiplication in
 a CUDA kernel written for Hopper (``csrc/win_g1.cu``), and the fused
 verification MSM of the dealerless DKG (``harness/dkg.py``), with the
-windowed G2 scalar multiplication in ``csrc/win_g2.cu``.  A third
-kernel, the bit-serial G1 ladder (``csrc/scan_g1.cu``), lies on no
-production path.
+windowed G2 scalar multiplication in ``csrc/win_g2.cu``.  The flush
+also runs sharded over a mesh (``parallel/mesh.py``): each shard on its
+own stream and card, the group partials ring-reduced by
+``csrc/ring_permute.cu``.  The bit-serial G1 ladder
+(``csrc/scan_g1.cu``) lies on no production path.
 
 Entry points run on the card unless the caller asks for the CPU:
-``ops.backend_cuda.CudaBackend()`` and ``harness.dkg.VectorizedDkg(...)``
-mean ``torch.device("cuda")`` and raise when CUDA is absent;
+``ops.backend_cuda.CudaBackend()``, ``harness.dkg.VectorizedDkg(...)``
+and ``parallel.mesh.make_mesh(n)`` mean ``torch.device("cuda")`` and
+raise when CUDA is absent;
 ``device="cpu"`` runs every kernel's plain PyTorch version instead (the
 CPU tests do this).
 """

@@ -13,11 +13,22 @@ device.  A device failure raises to the caller — there is no degrade
 ladder, no silent host recompute.  ``CudaBackend()`` means the card and
 raises when CUDA is absent; ``CudaBackend(device="cpu")`` runs the same
 path with every kernel's plain PyTorch version (the CPU tests).
+
+``CudaBackend(mesh=parallel.mesh.make_mesh(n))`` shards the device MSMs
+over n ≥ 2 shards, as the reference's ``TpuBackend(mesh=...)``
+(``_mesh_flush_active``, ``backend_tpu.py:162-172``): a uniform product
+flush at or above ``G1_PRODUCT_DEVICE_MIN`` splits every group's points
+over the shards and ring-reduces the group partials
+(``parallel.mesh.sharded_product_msm``); a flat MSM at or above
+``G1_DEVICE_MIN`` splits its rows (``sharded_packed_msm``); non-uniform
+groups run on ``device``.  A 1-shard mesh is the single-device path.
+The mesh is an argument only: no environment variable makes one, and a
+mesh failure raises like any device failure.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -43,8 +54,20 @@ class CudaBackend(CpuBackend):
     G1_DEVICE_MIN = 1 << 16
     G1_PRODUCT_DEVICE_MIN = 1 << 13
 
-    def __init__(self, device: DeviceLike = None):
+    def __init__(self, device: DeviceLike = None, mesh=None):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.devices[0].type != self.device.type:
+            raise ValueError(f"a mesh on {mesh.devices[0]} for a backend on {self.device}")
+        self.mesh = mesh
+        # every shard's group sums of the last mesh product flush
+        self.last_shard_sums: Optional[List[torch.Tensor]] = None
+
+    def _mesh_flush_active(self) -> bool:
+        """Whether device MSMs shard over the mesh: two or more shards."""
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _active_mesh(self):
+        return self.mesh if self._mesh_flush_active() else None
 
     @staticmethod
     def _on_host(k: int, minimum: int) -> bool:
@@ -60,7 +83,7 @@ class CudaBackend(CpuBackend):
         points, scalars = list(points), list(scalars)
         if self._on_host(len(points), self.G1_DEVICE_MIN):
             return EagerFinalizer(CpuBackend.g1_msm(self, points, scalars))
-        return packed_msm.g1_msm_async(points, scalars, self.device)
+        return packed_msm.g1_msm_async(points, scalars, self.device, self._active_mesh())
 
     # -- product-form MSM (the fused flush's dominant shape) ---------------
 
@@ -70,18 +93,23 @@ class CudaBackend(CpuBackend):
         points = list(points)
         if self._on_host(len(points), self.G1_PRODUCT_DEVICE_MIN):
             return points
+        if self._mesh_flush_active() and group_sizes and packed_msm._uniform(group_sizes):
+            return packed_msm.ship_shards(points, list(group_sizes), self.mesh)
         return packed_msm.ship_points(points, self.device)
 
     def g1_msm_product_async(self, points, s_coeffs, t_coeffs, group_sizes):
-        if not isinstance(points, torch.Tensor):
+        if not isinstance(points, (torch.Tensor, packed_msm.ShardedWires)):
             points = list(points)
             if self._on_host(len(points), self.G1_PRODUCT_DEVICE_MIN):
                 return super().g1_msm_product_async(
                     points, s_coeffs, t_coeffs, group_sizes
                 )
-        return packed_msm.g1_msm_product_async(
-            points, s_coeffs, t_coeffs, group_sizes, self.device
+        fin = packed_msm.g1_msm_product_async(
+            points, s_coeffs, t_coeffs, group_sizes, self.device, self._active_mesh()
         )
+        if getattr(fin, "shard_sums", None) is not None:
+            self.last_shard_sums = fin.shard_sums
+        return fin
 
     # -- batched share verification ---------------------------------------
 

@@ -1,8 +1,8 @@
-"""Scalar multiplication kernels: the CUDA kernels and their plain twins.
+"""The port's CUDA kernels and their plain twins.
 
-The port of the scalar-multiplication half of
-``hbbft_tpu/ops/pallas_ec.py``.  Three Pallas kernels become CUDA C++
-written by hand for Hopper, sharing ``csrc/bls_fq.cuh``:
+The port of ``hbbft_tpu/ops/pallas_ec.py``.  Its four Pallas kernels
+become CUDA C++ written by hand for Hopper; the three scalar
+multiplications share ``csrc/bls_fq.cuh``:
 
 - ``_make_windowed_kernel(g2=False)`` (exec name ``win_g1``) →
   ``csrc/win_g1.cu``, wrapper :func:`win_g1`, entry
@@ -11,7 +11,10 @@ written by hand for Hopper, sharing ``csrc/bls_fq.cuh``:
   wrapper :func:`win_g2`, entry :func:`scalar_mul_windowed_g2`;
 - ``_scalar_mul_kernel`` (``scan_g1``) → ``csrc/scan_g1.cu``, wrapper
   :func:`scan_g1`, entry :func:`scalar_mul_scan` (the counterpart of
-  ``scalar_mul_pallas``).
+  ``scalar_mul_pallas``);
+- ``_ring_permute_kernel`` (``ring_permute``) → ``csrc/ring_permute.cu``,
+  wrapper :func:`ring_permute` over the shards of a
+  ``parallel.mesh.Mesh`` (one launch per shard, :func:`ring_copy`).
 
 Each wrapper, on a CUDA tensor, launches its kernel (or raises) — never
 a fallback; on a CPU tensor it runs the kernel's plain PyTorch version
@@ -29,7 +32,7 @@ counterpart (one thread per point reads its own row).
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +41,7 @@ from . import kernels
 from . import limbs as LB
 from .ec import PointKernel, g1_kernel, g2_kernel
 
-LAUNCHES: Dict[str, int] = {"win_g1": 0, "win_g2": 0, "scan_g1": 0}
+LAUNCHES: Dict[str, int] = {"win_g1": 0, "win_g2": 0, "scan_g1": 0, "ring_permute": 0}
 
 # point shape each kernel takes after the leading K
 _POINT_SHAPE: Dict[str, Tuple[int, ...]] = {
@@ -217,3 +220,109 @@ def scalar_mul_scan(pts: torch.Tensor, bits) -> torch.Tensor:
     of ``pallas_ec.scalar_mul_pallas``): ``pts`` [K, 3, 38] int32 ×
     ``bits`` [K, nbits] msb-first → [K, 3, 38]."""
     return scan_g1(pts, _host_aux(bits, pts.device))
+
+
+# ---------------------------------------------------------------------------
+# The ring step of the mesh reduction
+# ---------------------------------------------------------------------------
+# A mesh here is duck-typed: ``devices`` (shard j's torch.device),
+# ``streams`` (shard j's CUDA stream, None on the CPU) and ``on(j)`` (a
+# context that makes shard j's device and stream current) — see
+# ``parallel/mesh.py``.
+
+
+def _check_ring(bufs: List[torch.Tensor], mesh) -> None:
+    if len(bufs) != len(mesh.devices):
+        raise ValueError(f"{len(bufs)} buffers for a mesh of {len(mesh.devices)} shards")
+    for j, (b, d) in enumerate(zip(bufs, mesh.devices)):
+        if b.device != d:
+            raise ValueError(f"shard {j}'s buffer is on {b.device}, its shard on {d}")
+        if b.shape != bufs[0].shape or b.dtype != bufs[0].dtype:
+            raise ValueError("ring buffers differ in shape or dtype")
+
+
+def ring_permute_plain(bufs: List[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """The plain PyTorch version of ``ring_permute``: shard j receives
+    shard (j-1)'s buffer, by ``Tensor.to`` on the current streams."""
+    _check_ring(bufs, mesh)
+    n = len(bufs)
+    return [bufs[(j - 1) % n].to(mesh.devices[j], copy=True) for j in range(n)]
+
+
+def _ring_lib() -> ctypes.CDLL:
+    lib = kernels.load("ring_permute")
+    p = ctypes.c_void_p
+    lib.ring_permute_launch.argtypes = [p, p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, p]
+    lib.ring_permute_launch.restype = ctypes.c_int
+    lib.ring_permute_error_string.argtypes = [ctypes.c_int]
+    lib.ring_permute_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ring_copy(src: torch.Tensor, dst: torch.Tensor, stream: torch.cuda.Stream) -> None:
+    """One launch of the ring kernel: store ``src``'s bytes into ``dst``
+    (same shape and dtype, contiguous, on any two cards) from
+    ``stream``, a stream of ``src``'s card.  No sync; the caller orders
+    the streams.  Raises if peer access or the launch fails."""
+    if src.device.type != "cuda" or dst.device.type != "cuda":
+        raise ValueError(f"ring_copy runs on cuda tensors, not {src.device} -> {dst.device}")
+    if src.shape != dst.shape or src.dtype != dst.dtype:
+        raise ValueError("ring_copy takes tensors of one shape and dtype")
+    if not (src.is_contiguous() and dst.is_contiguous()):
+        raise ValueError("ring_copy takes contiguous tensors")
+    if stream.device != src.device:
+        raise ValueError(f"the stream is on {stream.device}, the sender on {src.device}")
+    lib = _ring_lib()
+    nbytes = src.numel() * src.element_size()
+    rc = lib.ring_permute_launch(
+        src.data_ptr(), dst.data_ptr(), nbytes, src.device.index, dst.device.index,
+        stream.cuda_stream,
+    )
+    if rc != 0:
+        msg = lib.ring_permute_error_string(rc).decode()
+        raise RuntimeError(f"ring_permute launch failed: {msg} ({rc})")
+    LAUNCHES["ring_permute"] += 1
+
+
+def ring_permute(bufs: List[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """One ring step (the counterpart of ``pallas_ec.ring_permute``):
+    shard j's buffer lands on shard (j+1) % n, so shard j receives shard
+    (j-1)'s.  ``bufs[j]`` lies on ``mesh.devices[j]`` and is ready in
+    the order of ``mesh.streams[j]``; the received buffers are ready in
+    the same sense.
+
+    On CUDA every shard launches the kernel on its own stream into a
+    buffer on its right neighbour.  The two DMA semaphores of the TPU
+    kernel become events: the sender's stream waits until the receive
+    buffer is free on the receiver's stream, and the receiver's stream
+    waits for the copy before anything it queues next.  The receive
+    buffer is allocated on the receiver's stream and recorded on the
+    sender's, so the caching allocator does not hand it out again while
+    the copy is in flight.  CPU shards run :func:`ring_permute_plain`."""
+    _check_ring(bufs, mesh)
+    n = len(bufs)
+    if all(b.device.type == "cpu" for b in bufs):
+        return ring_permute_plain(bufs, mesh)
+    if not all(b.device.type == "cuda" for b in bufs):
+        raise ValueError("ring_permute runs on cuda or cpu shards")
+    recv, free = [], []
+    for j in range(n):
+        with mesh.on(j):
+            msg = bufs[(j - 1) % n]
+            recv.append(torch.empty(msg.shape, dtype=msg.dtype, device=mesh.devices[j]))
+            ev = torch.cuda.Event()
+            ev.record(mesh.streams[j])
+            free.append(ev)
+    for j in range(n):
+        r = (j + 1) % n
+        s_src = mesh.streams[j]
+        with mesh.on(j):
+            src = bufs[j].contiguous()
+        s_src.wait_event(free[r])
+        src.record_stream(s_src)
+        recv[r].record_stream(s_src)
+        ring_copy(src, recv[r], s_src)
+        done = torch.cuda.Event()
+        done.record(s_src)
+        mesh.streams[r].wait_event(done)
+    return recv

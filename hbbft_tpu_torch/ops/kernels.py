@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one CUDA C++ source under ``hbbft_tpu_torch/csrc/`` with
-a plain C entry point; the sources share the field routines of
-``csrc/bls_fq.cuh``.  A kernel is compiled on first use by ``nvcc`` for
+a plain C entry point; the EC sources share the field routines of
+``csrc/bls_fq.cuh`` (``ring_permute.cu`` is a copy and includes none).
+A kernel is compiled on first use by ``nvcc`` for
 Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a shared
 library under ``build/hbbft_tpu_torch/`` at the repo root, and loaded
 with ``ctypes``.  The library's file name carries a hash of the source,
@@ -34,7 +35,7 @@ BUILD_DIR = PKG_DIR.parent / "build" / "hbbft_tpu_torch"
 
 CSRC = PKG_DIR / "csrc"
 SOURCES: Dict[str, pathlib.Path] = {
-    name: CSRC / f"{name}.cu" for name in ("win_g1", "win_g2", "scan_g1")
+    name: CSRC / f"{name}.cu" for name in ("win_g1", "win_g2", "scan_g1", "ring_permute")
 }
 
 NVCC_FLAGS = [

@@ -12,7 +12,11 @@ share-verification flush (G1) and the verified DKG (G2) run:
 - the windowed scalar multiplication (``cuda_ec.win_g1``: the CUDA
   kernel on the card, its plain version on CPU tensors);
 - per-group complete-add trees (``_group_tree``) and, for the product
-  form, a host MSM of the group partials with the group coefficients.
+  form, a host MSM of the group partials with the group coefficients;
+- on a mesh of shards (``parallel/mesh.py``), per-shard blocks of a
+  uniform product flush (``_put_shard_blocks``, ``ship_shards``) and the
+  sharded engine with its ring all-reduce; a flat MSM splits its rows
+  over the shards.
 
 :func:`g1_msm_product_async` is device-only: where the reference
 returns ``None`` for non-uniform group sizes and lets the host take
@@ -32,6 +36,7 @@ MSMs) until they are called.  The wire copy itself is synchronous.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -191,12 +196,19 @@ def ship_points(points: Sequence[Any], device: torch.device) -> torch.Tensor:
 class DeviceFinalizer:
     """Finalizer over device work already enqueued: calling it waits for
     the device result (the copy to the host synchronises) and finishes
-    on the host; later calls return the same value."""
+    on the host; later calls return the same value.  A mesh flush also
+    keeps every shard's replicated group sums in ``shard_sums``."""
 
-    def __init__(self, finish, device_result: torch.Tensor):
+    def __init__(
+        self,
+        finish,
+        device_result: torch.Tensor,
+        shard_sums: Optional[List[torch.Tensor]] = None,
+    ):
         self._finish = finish
         self._result: Optional[torch.Tensor] = device_result
         self._value: Any = None
+        self.shard_sums = shard_sums
 
     def __call__(self):
         if self._result is not None:
@@ -225,14 +237,114 @@ def _flat_sum(wires: torch.Tensor, scalars: Sequence[int]) -> torch.Tensor:
     return g1_kernel().tree_sum(prods)
 
 
-def g1_msm_async(points, scalars: Sequence[int], device: torch.device):
-    """Flat MSM Σ kᵢ·Pᵢ on ``device``; returns a finalizer yielding the
-    host G1 point."""
+def g1_msm_async(points, scalars: Sequence[int], device: torch.device, mesh=None):
+    """Flat MSM Σ kᵢ·Pᵢ on ``device``, or sharded over ``mesh`` when it
+    has two or more shards (``parallel.mesh.sharded_packed_msm``);
+    returns a finalizer yielding the host G1 point."""
     scalars = list(scalars)
     if not scalars:
         return EagerFinalizer(G1.infinity())
+    if mesh is not None and mesh.size > 1:
+        from ..parallel import mesh as M
+
+        wires = g1_wires_batch(list(points))
+        sc = scalar_bytes_batch(scalars, _scalar_width(scalars))
+        return DeviceFinalizer(g1_from_limbs, M.sharded_packed_msm(mesh, wires, sc))
     total = _flat_sum(_device_wires(points, device), scalars)
     return DeviceFinalizer(g1_from_limbs, total)
+
+
+# ---------------------------------------------------------------------------
+# The mesh-sharded product flush
+# ---------------------------------------------------------------------------
+
+
+def _uniform(group_sizes: Sequence[int]) -> bool:
+    return bool(group_sizes) and len(set(group_sizes)) == 1
+
+
+def _mesh_shard_rows(n: int, g_dev: int, n_dev: int):
+    """(n_shard, kd_shard) of one shard's block: ``g_dev`` groups ×
+    ⌈n/n_dev⌉ rows each (reference ``:1251-1258``; ``win_g1`` takes any
+    row count, so there is no tile bucket)."""
+    n_shard = -(-n // n_dev)
+    return n_shard, g_dev * n_shard
+
+
+def _put_shard_blocks(
+    rows: np.ndarray, n: int, g_dev: int, mesh, width: int = 96
+) -> List[torch.Tensor]:
+    """Group-major ``[g_dev·n, width]`` u8 rows → one block a shard, on
+    the shard's device (reference ``:1329-1370``): shard j holds rows
+    ``[j·n_shard, (j+1)·n_shard)`` of every group, group-major, and zero
+    rows pad the group remainder and the trailing shards when n < n_dev
+    (all-zero wire = infinity, zero scalar = 0: absorbing)."""
+    n_dev = mesh.size
+    n_shard, kd_shard = _mesh_shard_rows(n, g_dev, n_dev)
+    buf = np.zeros((n_dev, kd_shard, width), dtype=np.uint8)
+    src = rows.reshape(g_dev, n, width)
+    for j in range(n_dev):
+        lo = j * n_shard
+        cnt = min(n_shard, n - lo)
+        if cnt <= 0:
+            break  # trailing shards hold only padding (n < n_dev)
+        buf[j].reshape(g_dev, n_shard, width)[:, :cnt] = src[:, lo : lo + cnt]
+    blocks = []
+    for j, d in enumerate(mesh.devices):
+        with mesh.on(j):
+            blocks.append(torch.from_numpy(buf[j]).to(d))
+    return blocks
+
+
+@dataclasses.dataclass
+class ShardedWires:
+    """A uniform product flush's wires shipped to a mesh, one block a
+    shard (``blocks``), for ``n_groups`` groups of ``n`` points."""
+
+    blocks: List[torch.Tensor]
+    n: int
+    n_groups: int
+    mesh: Any
+
+
+def ship_shards(points: Sequence[Any], group_sizes: Sequence[int], mesh) -> ShardedWires:
+    """Marshal a uniform product flush's wires on the host and copy each
+    shard's block to its device."""
+    points = list(points)
+    g = len(group_sizes)
+    n = group_sizes[0] if g else 0
+    if not _uniform(group_sizes) or len(points) != g * n:
+        raise ValueError(f"{len(points)} points in groups {list(group_sizes)}: not uniform")
+    rows = g1_wires_batch(points)
+    return ShardedWires(_put_shard_blocks(rows, n, g, mesh), n, g, mesh)
+
+
+def _t_msm(t_list: List[int]):
+    """The finalizer's host half: the t-MSM of the G group partials."""
+
+    def finish(arr: np.ndarray):
+        group_pts = [g1_from_limbs(arr[i]) for i in range(arr.shape[0])]
+        return CpuBackend().g1_msm(group_pts, t_list)
+
+    return finish
+
+
+def _mesh_product(shipped: ShardedWires, s_list, t_list, sizes):
+    """The product MSM over a mesh: scalar blocks to the shards,
+    ``parallel.mesh.sharded_product_msm``, and the host t-MSM of shard
+    0's replicated group sums in the finalizer."""
+    from ..parallel import mesh as M
+
+    n, g = shipped.n, shipped.n_groups
+    check_product_shape(n * g, len(s_list), len(t_list), sizes)
+    if list(sizes) != [n] * g:
+        raise ValueError(f"shipped for {g} groups of {n}, flushed as {list(sizes)}")
+    if not s_list:
+        return EagerFinalizer(G1.infinity())
+    sc = scalar_bytes_batch(s_list, S_BITS // 8)
+    dev_sc = _put_shard_blocks(sc, n, g, shipped.mesh, width=S_BITS // 8)
+    sums = M.sharded_product_msm(shipped.mesh, shipped.blocks, dev_sc, g)
+    return DeviceFinalizer(_t_msm(t_list), sums[0], shard_sums=sums)
 
 
 def g1_msm_product_async(
@@ -241,6 +353,7 @@ def g1_msm_product_async(
     t_coeffs: Sequence[int],
     group_sizes: Sequence[int],
     device: torch.device,
+    mesh=None,
 ):
     """Factored product MSM ``Σ_g t_g·(Σ_{i∈g} sᵢ·Pᵢ)`` on ``device``.
 
@@ -248,10 +361,24 @@ def g1_msm_product_async(
     per-group trees on the device, then the host MSM of the G partials
     with the t-coefficients inside the finalizer.  Non-uniform groups:
     one flat device MSM with scalars ``sᵢ·t_g mod r``.  Both equal the
-    flat MSM on r-torsion points."""
+    flat MSM on r-torsion points.  ``points`` shipped by
+    :func:`ship_shards`, or uniform groups with a ``mesh`` of two or
+    more shards, take the sharded engine instead (:func:`_mesh_product`);
+    non-uniform groups stay on ``device``."""
     s_list = list(s_coeffs)
     t_list = list(t_coeffs)
     sizes = list(group_sizes)
+    if isinstance(points, ShardedWires):
+        return _mesh_product(points, s_list, t_list, sizes)
+    if (
+        mesh is not None
+        and mesh.size > 1
+        and _uniform(sizes)
+        and not isinstance(points, torch.Tensor)
+    ):
+        points = list(points)
+        check_product_shape(len(points), len(s_list), len(t_list), sizes)
+        return _mesh_product(ship_shards(points, sizes, mesh), s_list, t_list, sizes)
     wires = _device_wires(points, device)
     check_product_shape(wires.shape[0], len(s_list), len(t_list), sizes)
     if not s_list:
@@ -261,13 +388,7 @@ def g1_msm_product_async(
         return DeviceFinalizer(g1_from_limbs, _flat_sum(wires, flat))
     sc = torch.from_numpy(scalar_bytes_batch(s_list, S_BITS // 8)).to(device)
     prods = cuda_ec.win_g1(_wire_points_g1(wires), _scalar_digits(sc))
-    gsums = _group_tree(prods, len(sizes))
-
-    def finish(arr: np.ndarray):
-        group_pts = [g1_from_limbs(arr[i]) for i in range(arr.shape[0])]
-        return CpuBackend().g1_msm(group_pts, t_list)
-
-    return DeviceFinalizer(finish, gsums)
+    return DeviceFinalizer(_t_msm(t_list), _group_tree(prods, len(sizes)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,182 @@
+"""A mesh of shards for the flush's G1 MSMs, and the ring all-reduce.
+
+The port of the mesh-sharded product flush of
+``hbbft_tpu/parallel/mesh.py``.  The reference shards the point axis of
+a product flush over a ``jax.sharding.Mesh`` under ``shard_map``: each
+shard unpacks its block of wires, runs the windowed kernel, builds its
+per-group trees, and the ``[G, 3, L]`` partials meet in a ring
+all-reduce of n−1 rounds of ``ring_permute`` and a complete EC add.
+
+Here a :class:`Mesh` is a list of shards, each a ``torch.device`` with
+its own CUDA stream.  Shard j of a mesh made on the card runs on
+``cuda:(j % torch.cuda.device_count())``, so on one card the shards
+run side by side on their streams and the ring moves bytes within
+device memory; on several cards the ring kernel stores into the
+neighbour card's memory over NVLink.  ``make_mesh(n, device="cpu")``
+gives n CPU shards, on which every kernel runs its plain version.
+
+Every sharded function queues shard j's work on shard j's stream, and
+hands back tensors that are safe to use on the devices' current streams
+(:meth:`Mesh.join`).  The reference's executable cache, runner keys and
+its XLA scan engine have no counterpart: PyTorch runs eagerly.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..ops import cuda_ec
+from ..ops import packed_msm as PM
+from ..ops.ec import PointKernel, g1_kernel
+
+
+class Mesh:
+    """n shards: ``devices[j]`` and, on CUDA, ``streams[j]``."""
+
+    def __init__(self, devices: Sequence[torch.device]):
+        if not devices:
+            raise ValueError("a mesh needs at least one shard")
+        self.devices: List[torch.device] = [torch.device(d) for d in devices]
+        self.streams: List[Optional[torch.cuda.Stream]] = [
+            torch.cuda.Stream(device=d) if d.type == "cuda" else None for d in self.devices
+        ]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def __repr__(self) -> str:
+        return f"Mesh({[str(d) for d in self.devices]})"
+
+    @contextlib.contextmanager
+    def on(self, j: int) -> Iterator[None]:
+        """Make shard j's device and stream current (nothing on a CPU shard)."""
+        stream = self.streams[j]
+        if stream is None:
+            yield
+            return
+        with torch.cuda.device(self.devices[j]), torch.cuda.stream(stream):
+            yield
+
+    def fork(self) -> None:
+        """Order every shard stream after its device's current stream, so
+        tensors made there are ready for the shards."""
+        for d, s in zip(self.devices, self.streams):
+            if s is not None:
+                s.wait_stream(torch.cuda.current_stream(d))
+
+    def join(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Order each device's current stream after its shard's stream, so
+        ``tensors[j]`` (made on shard j) is safe to use there."""
+        for t, d, s in zip(tensors, self.devices, self.streams):
+            if s is not None:
+                cur = torch.cuda.current_stream(d)
+                cur.wait_stream(s)
+                t.record_stream(cur)
+        return tensors
+
+
+def make_mesh(n_shards: Optional[int] = None, device: DeviceLike = None) -> Mesh:
+    """A 1-D mesh of ``n_shards`` shards (counterpart of the reference's
+    ``make_mesh`` ``:59``).  On the card (``device`` None or CUDA) shard
+    j runs on ``cuda:((i + j) % device_count())`` for ``cuda:i`` (i = 0
+    by default) and the default size is the number of cards;
+    ``device="cpu"`` gives ``n_shards`` CPU shards (default 1)."""
+    dev = resolve_device(device)
+    if n_shards is not None and n_shards < 1:
+        raise ValueError(f"a mesh needs at least one shard, not {n_shards}")
+    if dev.type == "cpu":
+        return Mesh([dev] * (n_shards or 1))
+    count = torch.cuda.device_count()
+    base = dev.index or 0
+    n = count if n_shards is None else n_shards
+    return Mesh([torch.device("cuda", (base + j) % count) for j in range(n)])
+
+
+def _ring_reduce(
+    local: List[torch.Tensor], kern: PointKernel, mesh: Mesh
+) -> List[torch.Tensor]:
+    """Ring all-reduce of per-shard partial sums (reference ``:266-285``):
+    n−1 rounds of ``ring_permute`` and ``acc = kern.add(acc, msg)``.
+    Each shard forwards the buffer it RECEIVED, not its accumulator, so
+    every shard folds in every other shard's partial once and the sum is
+    replicated; each shard's limbs equal the reference's."""
+    n = mesh.size
+    if n <= 1:
+        return list(local)
+    acc = list(local)
+    msg = list(local)
+    for _ in range(n - 1):
+        msg = cuda_ec.ring_permute(msg, mesh)
+        for j in range(n):
+            with mesh.on(j):
+                acc[j] = kern.add(acc[j], msg[j])
+    return acc
+
+
+def sharded_product_msm(
+    mesh: Mesh,
+    shard_wires: List[torch.Tensor],
+    shard_sc: List[torch.Tensor],
+    n_groups: int,
+) -> List[torch.Tensor]:
+    """The sharded product engine (reference ``sharded_product_msm_fn``
+    ``:304-375``, its windowed-kernel body): shard j holds ``[n_groups ·
+    n_shard, 96]`` u8 wires and ``[n_groups · n_shard, nb]`` u8 scalar
+    bytes, group-major (``packed_msm._put_shard_blocks``).  Per shard,
+    on its stream: unpack, ``cuda_ec.win_g1``, per-group trees; then
+    :func:`_ring_reduce`.  Returns every shard's ``[n_groups, 3, L]``
+    group sums, all the same points."""
+    mesh.fork()
+    kern = g1_kernel()
+    prods = []
+    # every shard's kernel is queued before any shard's tree, so the
+    # host's tree launches do not hold the next shard's kernel back
+    for j in range(mesh.size):
+        with mesh.on(j):
+            pts = PM._wire_points_g1(shard_wires[j])
+            prods.append(cuda_ec.win_g1(pts, PM._scalar_digits(shard_sc[j])))
+    local = []
+    for j in range(mesh.size):
+        with mesh.on(j):
+            local.append(PM._group_tree(prods[j], n_groups))
+    return mesh.join(_ring_reduce(local, kern, mesh))
+
+
+def sharded_packed_msm(mesh: Mesh, wires: np.ndarray, sc: np.ndarray) -> torch.Tensor:
+    """Flat Σ kᵢ·Pᵢ over host ``wires`` [k, 96] u8 and big-endian scalar
+    bytes ``sc`` [k, nb] u8 (reference ``sharded_packed_msm_fn``
+    ``:171-233``): shard j takes rows ``[j·m, (j+1)·m)``, m = ⌈k/n⌉,
+    zero-padded (all-zero wire = infinity, zero scalar = 0), and sums
+    its products with a tree; the reference's ``all_gather`` becomes a
+    copy of each shard's ``[3, L]`` to shard 0, then one more
+    ``tree_sum``.  Returns ``[3, L]`` on shard 0's device."""
+    n = mesh.size
+    k = wires.shape[0]
+    m = -(-k // n)
+    wires = np.concatenate([wires, np.zeros((n * m - k, wires.shape[1]), np.uint8)])
+    sc = np.concatenate([sc, np.zeros((n * m - k, sc.shape[1]), np.uint8)])
+    kern = g1_kernel()
+    shipped = []
+    for j, d in enumerate(mesh.devices):
+        with mesh.on(j):
+            shipped.append(
+                (
+                    torch.from_numpy(wires[j * m : (j + 1) * m]).to(d),
+                    torch.from_numpy(sc[j * m : (j + 1) * m]).to(d),
+                )
+            )
+    mesh.fork()
+    partials = []
+    for j, (w, s) in enumerate(shipped):
+        with mesh.on(j):
+            prods = cuda_ec.win_g1(PM._wire_points_g1(w), PM._scalar_digits(s))
+            partials.append(kern.tree_sum(prods))
+    partials = mesh.join(partials)
+    home = mesh.devices[0]
+    return kern.tree_sum(torch.stack([p.to(home) for p in partials]))

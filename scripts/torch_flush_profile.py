@@ -2,7 +2,9 @@
 """Where the time of one full-width flush goes, on the card.
 
 Drives ``BatchingBackend(inner=CudaBackend()).prefetch`` over N = 1024
-validators × 64 fresh ciphertexts (65,536 decryption shares): a few
+validators × 64 fresh ciphertexts (65,536 decryption shares), or with
+``--mesh N`` the same flush over ``CudaBackend(mesh=make_mesh(N))``
+(N shards, each on its own stream): a few
 warm flushes timed by the host clock (with their stage walls), then
 one flush under ``torch.profiler`` (CPU + CUDA activities) for the
 device's busy time by kernel.  Prints one JSON object per measurement,
@@ -10,11 +12,12 @@ then the card's name and power limit; with a path argument the
 profiled flush's Chrome trace is written there.
 
 Run from the repo root on a CUDA host:
-``python3 scripts/torch_flush_profile.py [TRACE.json]``.
+``python3 scripts/torch_flush_profile.py [--mesh N] [TRACE.json]``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import random
@@ -50,6 +53,11 @@ def _busy_us(events) -> float:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trace", nargs="?", help="write the profiled flush's Chrome trace here")
+    ap.add_argument("--mesh", type=int, default=0, help="shards of a mesh (0: one device)")
+    args = ap.parse_args()
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -60,9 +68,10 @@ def main() -> int:
     from hbbft_tpu_torch.harness.workload import DecryptionFlushWorkload
     from hbbft_tpu_torch.ops import cuda_ec
     from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
+    from hbbft_tpu_torch.parallel.mesh import make_mesh
 
     work = DecryptionFlushWorkload(N_NODES, random.Random(0xF10))
-    inner = CudaBackend()
+    inner = CudaBackend(mesh=make_mesh(args.mesh) if args.mesh else None)
     batches = [work.obligations(b"p-%d" % i, GROUPS) for i in range(WARM + 2)]
     walls, phases = [], []
     for obs in batches[:WARM + 1]:  # the first is the cold flush
@@ -77,11 +86,13 @@ def main() -> int:
     print(
         json.dumps(
             {
+                "mesh": args.mesh,
                 "cold_flush_s": walls[0],
                 "warm_flush_s": walls[1:],
                 "median_s": statistics.median(walls[1:]),
                 "shares_per_s": N_NODES * GROUPS / statistics.median(walls[1:]),
                 "phases": {k: statistics.median(p[k] for p in phases[1:]) for k in phases[-1]},
+                "launch_s": [p["launch"] for p in phases[1:]],
             }
         ),
         flush=True,
@@ -108,7 +119,7 @@ def main() -> int:
                 "profiled_flush_s": wall,
                 "device_busy_ms": busy_us / 1e3,
                 "device_idle_share": 1 - busy_us / 1e6 / wall,
-                "win_g1_launches": cuda_ec.LAUNCHES["win_g1"],
+                "launches": dict(cuda_ec.LAUNCHES),
                 "top_device_ops": [
                     {"op": key[:80], "ms": us / 1e3, "calls": n} for us, key, n in rows[:12]
                 ],
@@ -118,9 +129,9 @@ def main() -> int:
         ),
         flush=True,
     )
-    if len(sys.argv) > 1:
-        os.makedirs(os.path.dirname(os.path.abspath(sys.argv[1])), exist_ok=True)
-        prof.export_chrome_trace(sys.argv[1])
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
     print(
         subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -9,6 +9,10 @@ so they run on the GPU machine as they are:
 versions limb for limb (exact) and native ``hb_g1_mul`` / ``hb_g2_mul``
 canonically, and count exactly one launch per call; a small DKG with
 its fused MSM forced onto the card must give the CPU run's keys.
+``ring_permute`` must equal its plain version byte for byte on a
+4-shard mesh, whichever shard's stream runs late, and count one launch
+a shard; a small product flush over that mesh must give the host's
+point.
 """
 
 import random
@@ -131,3 +135,54 @@ def test_dkg_on_the_card_matches_cpu(dev):
     assert got.fault_log.is_empty() and got.msm_points == 7 * 9
     assert got.pk_set.public_key().to_bytes() == want.pk_set.public_key().to_bytes()
     assert all(got.shares[i].scalar == want.shares[i].scalar for i in range(7))
+
+
+@pytest.mark.parametrize("rows", [64, 5])
+def test_ring_permute_kernel_matches_plain(dev, rows):
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(4)
+    gen = np.random.default_rng(rows)
+    bufs = [
+        torch.from_numpy(
+            gen.integers(-(2**31), 2**31, size=(rows, 3, 38), dtype=np.int32)
+        ).to(d)
+        for d in mesh.devices
+    ]
+    want = [w.cpu() for w in cuda_ec.ring_permute_plain(bufs, mesh)]
+    # a long kernel on one shard's stream in turn: the result may not
+    # depend on the order in which the shard streams run
+    for late in [None, 0, 1, 2, 3]:
+        if late is not None:
+            with mesh.on(late):
+                torch.cuda._sleep(2_000_000)
+        before = cuda_ec.LAUNCHES["ring_permute"]
+        got = cuda_ec.ring_permute(bufs, mesh)
+        assert cuda_ec.LAUNCHES["ring_permute"] == before + 4
+        torch.cuda.synchronize()
+        for j in range(4):
+            assert got[j].device == mesh.devices[j]
+            assert torch.equal(got[j].cpu(), want[j]), (late, j)
+
+
+def test_mesh_product_flush_on_the_card(dev):
+    from hbbft_tpu_torch.crypto import fields as F
+    from hbbft_tpu_torch.crypto.backend import CpuBackend
+    from hbbft_tpu_torch.crypto.curve import G1_GEN
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
+    from hbbft_tpu_torch.parallel.mesh import make_mesh
+
+    rng = random.Random(0x7E57)
+    pts = [G1_GEN * rng.randrange(1, F.R) for _ in range(24)]
+    s = [rng.randrange(1, 1 << 96) for _ in pts]
+    t = [rng.randrange(1, F.R) for _ in range(3)]
+    sizes = [8, 8, 8]
+    be = CudaBackend(mesh=make_mesh(4))
+    be.G1_PRODUCT_DEVICE_MIN = 8
+    before = dict(cuda_ec.LAUNCHES)
+    got = be.g1_msm_product_async(be.g1_ship(pts, sizes), s, t, sizes)()
+    assert cuda_ec.LAUNCHES["win_g1"] == before["win_g1"] + 4
+    assert cuda_ec.LAUNCHES["ring_permute"] == before["ring_permute"] + 12
+    assert got == CpuBackend().g1_msm_product_async(pts, s, t, sizes)()

@@ -25,6 +25,7 @@ for blocked in ("jax", "jaxlib", "hbbft_tpu"):
     sys.modules[blocked] = None  # any import of them now raises
 import hbbft_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(hbbft_tpu_torch.__path__, "hbbft_tpu_torch.")]
+assert "hbbft_tpu_torch.parallel.mesh" in names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -47,7 +48,7 @@ def test_every_module_imports_without_jax_or_reference():
         timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 25
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 27
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -72,6 +73,7 @@ def test_cuda_backend_raises_without_cuda(monkeypatch):
     from hbbft_tpu_torch.harness.batching import BatchingBackend
     from hbbft_tpu_torch.harness.dkg import VectorizedDkg
     from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
+    from hbbft_tpu_torch.parallel.mesh import make_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -82,5 +84,8 @@ def test_cuda_backend_raises_without_cuda(monkeypatch):
         resolve_device("cuda:0")
     with pytest.raises(RuntimeError, match="CUDA"):
         VectorizedDkg(range(4), 1, random.Random(0))  # the DKG's default is the card
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(4)  # a mesh's default shards are cards
+    assert make_mesh(4, device="cpu").devices == [torch.device("cpu")] * 4
     assert VectorizedDkg(range(4), 1, random.Random(0), device="cpu").device.type == "cpu"
     assert CudaBackend(device="cpu").device == torch.device("cpu")

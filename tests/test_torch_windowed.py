@@ -104,11 +104,13 @@ def test_win_g1_checks_its_inputs():
 
 def test_cuda_source_constants_match_field():
     """The kernels' __constant__ fold table and subtraction pad, in the
-    shared header every kernel source includes, are the field's tables
-    (the kernels run only on the card)."""
+    shared header every EC kernel source includes, are the field's
+    tables (the kernels run only on the card).  The ring kernel is a
+    copy and includes no field code."""
     header = kernels.CSRC / "bls_fq.cuh"
     for name, path in kernels.SOURCES.items():
-        assert '#include "bls_fq.cuh"' in path.read_text(), name
+        includes = '#include "bls_fq.cuh"' in path.read_text()
+        assert includes == (name != "ring_permute"), name
         assert "FOLD" not in path.read_text(), name  # one copy of the tables
     src = header.read_text()
 
@@ -124,16 +126,21 @@ def test_cuda_source_constants_match_field():
 
 def test_header_edit_changes_every_kernel_tag(tmp_path, monkeypatch):
     """A library's build tag hashes its source and the shared headers,
-    so an edit to bls_fq.cuh never leaves a stale build in place."""
+    so an edit to bls_fq.cuh never leaves a stale build in place, and an
+    edit to one source changes only that source's tag."""
     for path in kernels.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(
         kernels, "SOURCES", {n: tmp_path / p.name for n, p in kernels.SOURCES.items()}
     )
     before = {n: kernels.lib_path(n) for n in kernels.SOURCES}
-    assert set(before) == {"win_g1", "win_g2", "scan_g1"}
-    assert len(set(before.values())) == 3
+    assert set(before) == {"win_g1", "win_g2", "scan_g1", "ring_permute"}
+    assert len(set(before.values())) == 4
     header = tmp_path / "bls_fq.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: kernels.lib_path(n) for n in kernels.SOURCES}
     assert all(after[n] != before[n] for n in before)
+    ring = tmp_path / "ring_permute.cu"
+    ring.write_text(ring.read_text() + "\n// edited\n")
+    again = {n: kernels.lib_path(n) for n in kernels.SOURCES}
+    assert [n for n in again if again[n] != after[n]] == ["ring_permute"]
