@@ -11,26 +11,32 @@ In order, and with no phase's failure caught:
 2. **Kernels against their plain versions** — at K = 1000 (not a
    multiple of 128) on random r-torsion points with identity rows and
    zero scalars: ``win_g1`` at 96- and 255-bit scalars, ``win_g2`` and
-   ``scan_g1`` at 255 bits; exact limb equality with the plain PyTorch
-   version on the card, and canonical equality with native
-   ``hb_g1_mul`` / ``hb_g2_mul``.  ``win_g1`` is then timed at the
-   flush's shape (K = 65,536, 96-bit scalars), and as four launches of
-   16,384 points on the four streams of a 4-shard mesh (exact against
-   the single launch).
+   ``scan_g1`` at 255 bits.  ``win_g1`` and ``win_g2`` compute in
+   Montgomery form and return canonical limbs: they must equal the plain
+   PyTorch version on the card at canonical values (``canon`` of both,
+   coordinate by coordinate, tolerance 0); ``scan_g1`` must equal its
+   plain version limb for limb; all three must equal native
+   ``hb_g1_mul`` / ``hb_g2_mul`` canonically.  ``win_g1`` is then timed
+   at the flush's shape (K = 65,536, 96-bit scalars), and as four
+   launches of 16,384 points on the four streams of a 4-shard mesh
+   (equal to the single launch).
 2b. **ring_permute against its plain version** — on a 4-shard mesh
    (shard j on card j % device_count), random int32 buffers of [64, 3,
    38] (the mesh flush's group partials) and [5, 3, 38] (not a whole
    number of 16-byte words per shard): byte equality, also with a long
    kernel queued on each shard's stream in turn.  With one card the
    cross-card leg is not run and a line says so.  The kernel, the
-   plain version and ``Tensor.copy_`` are timed per launch.
+   plain version and ``Tensor.copy_`` are timed per launch twice: 200
+   back-to-back calls paced by the host, and 200 calls enqueued behind
+   a ``torch.cuda._sleep`` so that they run back to back on the card's
+   own timeline (the figure the ``kernels`` line reports).
 3. **The flush at full width** — N = 1024 validators × 64 fresh
    ciphertexts = 65,536 real BLS12-381 decryption shares per flush,
    settled by ``BatchingBackend(inner=CudaBackend()).prefetch`` three
    times: every share must verify, with no fallback, and ``win_g1``
    must have been launched.  Two more flushes with one corrupted share,
    at 1024 × 64 (rejected by the fused check on the card) and at
-   1024 × 4 (a product below ``G1_PRODUCT_DEVICE_MIN``, on the host),
+   1024 × 2 (a product below ``G1_PRODUCT_DEVICE_MIN``, on the host),
    must cache ``False`` for exactly that obligation.
 3b. **The mesh flush at full width** — the same three batches through
    ``BatchingBackend(inner=CudaBackend(mesh=make_mesh(4))).prefetch``:
@@ -52,7 +58,7 @@ In order, and with no phase's failure caught:
    verify under the generated key set.  The same dealing with one row
    cell perturbed must make the fused check return False on the card.
    ``win_g2`` is then timed on the DKG's own points and scalars, once,
-   and its plain version once at the same shape (exact).
+   and its plain version once at the same shape (canonical values).
 5. **scan_g1** — lies on no production path: its entry point
    ``scalar_mul_scan`` (the counterpart of ``scalar_mul_pallas``) is
    driven once at K = 65,536 × 255 bits and checked against native on a
@@ -92,6 +98,9 @@ SCAN_BITS = 255
 MESH_SHARDS = 4
 RING_ROWS = (GROUPS, 5)
 RING_REPS = 200
+# cycles the card sleeps while RING_REPS launches are enqueued behind it
+# (~50 ms at the H100's 1.98 GHz boost clock)
+RING_SLEEP_CYCLES = 100_000_000
 FLAT_BITS = 128
 
 # The card's peak int32 multiply-add rate: the published fp32 rate of an
@@ -104,6 +113,25 @@ PEAK_BYTES_PER_S = 3.35e12
 # NVLink between two cards of one host: 900 GB/s in all, 450 GB/s each way
 NVLINK_BYTES_PER_S = 450e9
 FQ_LIMBS = 38
+# Multiply issue slots of one Fq product, a 12 × 32-bit Montgomery
+# product, as the function needs them: the 144 products a_i·b_j and the
+# 132 products m_i·p_j (j ≥ 1) need both halves of 32×32→64 bits (two
+# IMAD slots, lo and hi); the 12 m_i = t_0·(−p⁻¹) mod 2^32 need the low
+# half only, and the 12 m_i·p_0 the high half only (their low half
+# cancels t_0): one slot each.  300 partial products, 576 slots.
+FQ_MUL_SLOTS = 2 * (144 + 132) + 12 + 12
+# a square a·a needs the 78 products a_i·a_j with i ≤ j (the cross terms
+# doubled by a shift) in place of 144: 444 slots
+FQ_SQR_SLOTS = 2 * (78 + 132) + 12 + 12
+# Slots of one complete addition (RCB 2015 Alg. 7, 12 products) and of
+# one doubling, the same formula with p == q, where six of the twelve
+# products square (X·X, Y·Y, Z·Z, (X+Y)², (Y+Z)², (X+Z)²).  G2's products
+# are over Fq2: a product is 3 Fq products (Karatsuba), a square 2
+# ((a0 + a1)(a0 − a1) and a0·a1).
+G1_ADD_SLOTS = 12 * FQ_MUL_SLOTS
+G1_DBL_SLOTS = 6 * FQ_SQR_SLOTS + 6 * FQ_MUL_SLOTS
+G2_ADD_SLOTS = 12 * 3 * FQ_MUL_SLOTS
+G2_DBL_SLOTS = (6 * 2 + 6 * 3) * FQ_MUL_SLOTS
 G1_POINT_BYTES = 3 * FQ_LIMBS * 4
 G2_POINT_BYTES = 2 * G1_POINT_BYTES
 
@@ -127,25 +155,48 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def bound_ms(point_adds: int, fq_products: int, nbytes: int):
-    """The least time for ``point_adds`` complete additions of
-    ``fq_products`` full Fq products each (38 × 38 int32 multiply-adds;
-    the lazy schedule's folds, sums and small products are overhead of
-    the representation and not counted) moving ``nbytes`` (each input
-    read once, each output written once): the larger of the two."""
-    ops_ms = point_adds * fq_products * FQ_LIMBS * FQ_LIMBS / PEAK_IMAD_PER_S * 1e3
+def bound_ms(doublings: int, adds: int, g2: bool, nbytes: int):
+    """The least time for ``doublings`` point doublings and ``adds``
+    point additions on G1 (or G2), moving ``nbytes`` (each input read
+    once, each output written once): the larger of the two.
+
+    The operations are counted as the same work whatever implements
+    them: each Fq product as the 32×32→64-bit partial products a 12-word
+    Montgomery product needs (FQ_MUL_SLOTS, FQ_SQR_SLOTS: 300 partial
+    products, some needing one half only), each doubling with its six
+    squares, over the card's int32 multiply-add rate.  Additions,
+    reductions and the 38-limb kernels' folds are not counted.  A kernel
+    that multiplies less (Karatsuba on the integers, tensor-core
+    products, a point formula with fewer products) would beat this
+    count, and the bound would have to be recounted for it."""
+    slots = doublings * (G2_DBL_SLOTS if g2 else G1_DBL_SLOTS)
+    slots += adds * (G2_ADD_SLOTS if g2 else G1_ADD_SLOTS)
+    ops_ms = slots / PEAK_IMAD_PER_S * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def windowed_bound(k: int, nwin: int, g2: bool):
-    """A windowed point takes 14 + 5·nwin complete adds (the 16-entry
-    table, then 4 doublings + 1 add per window); a G1 add is 12 Fq
-    products, a G2 add 12 Fq2 products = 36 Fq products.  Each doubling
-    is counted as a complete add, as the kernels compute it; a
-    dedicated doubling formula would need fewer products."""
+def windowed_bound(digits, g2: bool):
+    """k·P by the 4-bit fixed window, for this run's msb-first digits
+    ``[K, nwin]`` (a digit outside 0..15 selects the identity, as in the
+    kernels): a row whose largest digit is m needs the table 2P..mP (one
+    doubling, m − 2 adds), then from its first nonzero window on, 4
+    doublings a later window and one add a later nonzero digit (the
+    first loads its table entry).  A zero row needs nothing.  The
+    kernels also double the identity in leading zero windows and add
+    the identity for zero digits; that work is not needed and not
+    counted."""
+    d = digits.cpu().numpy()
+    d = np.where((d < 0) | (d > 15), 0, d)
+    k, nwin = d.shape
+    nonzero = d != 0
+    live = nonzero.any(axis=1)
+    top = d.max(axis=1)
+    first = nonzero.argmax(axis=1)
+    doublings = np.where(live, 4 * (nwin - 1 - first) + (top >= 2), 0)
+    adds = np.where(live, np.maximum(top - 2, 0) + nonzero.sum(axis=1) - 1, 0)
     pt = G2_POINT_BYTES if g2 else G1_POINT_BYTES
-    return bound_ms(k * (14 + 5 * nwin), 36 if g2 else 12, k * (2 * pt + 4 * nwin))
+    return bound_ms(int(doublings.sum()), int(adds.sum()), g2, k * (2 * pt + 4 * nwin))
 
 
 def ring_bound(nbytes: int, cross_card: bool):
@@ -159,21 +210,22 @@ def ring_bound(nbytes: int, cross_card: bool):
 def scan_bound(bits):
     """k·P by double-and-add needs, for this run's msb-first bits
     ``[K, nbits]``, bit_length − 1 doublings and popcount − 1 adds of P
-    a nonzero scalar (the first set bit just loads P), each counted as a
-    complete G1 add of 12 Fq products.  The kernel also computes the add
-    on every zero bit and drops it; that work is not needed and not
-    counted."""
+    a nonzero scalar (the first set bit just loads P).  The kernel also
+    computes the add on every zero bit and drops it; that work is not
+    needed and not counted."""
     k, nbits = bits.shape
     set_bits = bits != 0
     popcount = set_bits.sum(axis=1)
     bit_length = np.where(popcount > 0, nbits - set_bits.argmax(axis=1), 0)
-    adds = int(np.maximum(bit_length - 1, 0).sum() + np.maximum(popcount - 1, 0).sum())
-    return bound_ms(adds, 12, k * (2 * G1_POINT_BYTES + 4 * nbits))
+    doublings = int(np.maximum(bit_length - 1, 0).sum())
+    adds = int(np.maximum(popcount - 1, 0).sum())
+    return bound_ms(doublings, adds, False, k * (2 * G1_POINT_BYTES + 4 * nbits))
 
 
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA card")
     try:
@@ -217,9 +269,17 @@ def main() -> int:
 
     rng = random.Random(SEED)
     max_err = {name: 0 for name in kernels.SOURCES}
+    # the windowed kernels are held at canonical values, the others exactly
+    compared = {"win_g1": "canonical", "win_g2": "canonical", "scan_g1": "limbs",
+                "ring_permute": "bytes"}
 
     def record_err(name: str, got, plain, what: str) -> None:
         torch.cuda.synchronize()
+        if compared[name] == "canonical":
+            f = LB.fq()
+            if not torch.equal(f.canon(got), got):
+                fail(f"{name} returned non-canonical limbs {what}")
+            plain = f.canon(plain)
         err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
         max_err[name] = max(max_err[name], err)
         if err != 0:
@@ -271,7 +331,7 @@ def main() -> int:
         for i in range(K_CHECK):
             if NT.g1_wire(g1_from_limbs(host[i])) != NT.g1_mul(wires[i], scalars[i]):
                 fail(f"win_g1 row {i} at {bits}-bit scalars is not k·P")
-        log(f"win_g1 K={K_CHECK} {bits}-bit: exact vs plain, canonical vs native: ok")
+        log(f"win_g1 K={K_CHECK} {bits}-bit: canonical values vs plain, canonical vs native: ok")
         if bits == 255:
             sbits = torch.from_numpy(LB.scalars_to_bits(scalars, 255)).to(dev)
             got = cuda_ec.scan_g1(pts, sbits)
@@ -290,7 +350,7 @@ def main() -> int:
     for i in range(K_CHECK):
         if NT.g2_wire(g2_from_limbs(host[i])) != NT.g2_mul(g2_wires[i], scalars[i]):
             fail(f"win_g2 row {i} is not k·P")
-    log(f"win_g2 K={K_CHECK} 255-bit: exact vs plain, canonical vs native: ok")
+    log(f"win_g2 K={K_CHECK} 255-bit: canonical values vs plain, canonical vs native: ok")
     del g2_pts, got
 
     # win_g1 timed at the flush's shape: 65,536 points, 96-bit scalars
@@ -301,10 +361,11 @@ def main() -> int:
     plain, win_g1_plain_ms = timed(lambda: cuda_ec.windowed_plain(pts, dig))
     record_err("win_g1", got, plain, f"at K={K_TIME}")
     del plain
-    win_g1_bound = windowed_bound(K_TIME, dig.shape[1], g2=False)
+    win_g1_bound = windowed_bound(dig, g2=False)
     log(
         f"win_g1 K={K_TIME} nwin={dig.shape[1]}: kernel {win_g1_ms} ms, plain "
-        f"{win_g1_plain_ms} ms, bound {win_g1_bound[0]} ms ({win_g1_bound[1]}), exact"
+        f"{win_g1_plain_ms} ms, bound {win_g1_bound[0]} ms ({win_g1_bound[1]}), "
+        f"equal at canonical values"
     )
 
     # the same points as the mesh flush runs them: four launches of
@@ -329,7 +390,7 @@ def main() -> int:
     record_err("win_g1", torch.cat([o.to(dev) for o in outs]), got, "on four streams")
     log(
         f"win_g1 on {MESH_SHARDS} streams of {mesh} x {quarter} points: {four_ms} ms "
-        f"span (one launch of {K_TIME}: {win_g1_ms} ms), exact against the one launch"
+        f"span (one launch of {K_TIME}: {win_g1_ms} ms), equal to the one launch"
     )
     del outs, shard_in
 
@@ -371,12 +432,47 @@ def main() -> int:
     ]
     src, dst = msg[0], torch.empty_like(msg[1])
     cur = torch.cuda.current_stream(src.device)
+
+    def device_timed(fn, reps: int):
+        """ms per call on the card's own timeline: the ``reps`` calls are
+        enqueued behind a ``_sleep`` on the current stream, so they run
+        back to back once it ends; also the host's enqueue wall and the
+        sleep's length, which must exceed it."""
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        marks[0].record()
+        torch.cuda._sleep(RING_SLEEP_CYCLES)
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].record()
+        torch.cuda.synchronize()
+        slept_ms = marks[0].elapsed_time(marks[1])
+        if enqueue_ms >= slept_ms:
+            fail(f"{reps} calls took {enqueue_ms} ms to enqueue, the card slept {slept_ms} ms")
+        return marks[1].elapsed_time(marks[2]) / reps, enqueue_ms, slept_ms
+
     cuda_ec.ring_copy(src, dst, cur)  # warm-up
-    _, ring_ms = timed(lambda: cuda_ec.ring_copy(src, dst, cur), RING_REPS)
+    _, ring_host_ms = timed(lambda: cuda_ec.ring_copy(src, dst, cur), RING_REPS)
+    ring_ms, ring_enq, ring_slept = device_timed(lambda: cuda_ec.ring_copy(src, dst, cur), RING_REPS)
     record_err("ring_permute", dst, src.to(dst.device), "timed copy")
-    _, ring_lib_ms = timed(lambda: dst.copy_(src), RING_REPS)
-    _, ring_plain_ms = timed(lambda: cuda_ec.ring_permute_plain(msg, mesh), RING_REPS)
+    _, ring_lib_host_ms = timed(lambda: dst.copy_(src), RING_REPS)
+    ring_lib_ms, lib_enq, lib_slept = device_timed(lambda: dst.copy_(src), RING_REPS)
+    _, ring_plain_host_ms = timed(lambda: cuda_ec.ring_permute_plain(msg, mesh), RING_REPS)
+    ring_plain_ms, plain_enq, plain_slept = device_timed(
+        lambda: cuda_ec.ring_permute_plain(msg, mesh), RING_REPS
+    )
+    ring_plain_host_ms /= MESH_SHARDS
     ring_plain_ms /= MESH_SHARDS
+    log(
+        f"ring_permute [{GROUPS}, 3, 38] per launch on the card's timeline ({RING_REPS} "
+        f"enqueued behind a sleep): kernel {ring_ms} ms, plain {ring_plain_ms} ms, copy_ "
+        f"{ring_lib_ms} ms (enqueued in {ring_enq} / {plain_enq} / {lib_enq} ms while the card "
+        f"slept {ring_slept} / {plain_slept} / {lib_slept} ms); paced by the host: kernel "
+        f"{ring_host_ms} ms, plain {ring_plain_host_ms} ms, copy_ {ring_lib_host_ms} ms"
+    )
 
     def ring_step():
         mesh.fork()
@@ -424,10 +520,10 @@ def main() -> int:
     log("flush launch-stage walls " + json.dumps([p["launch"] for p in phases]))
 
     # one corrupted share, at the full width (the fused check runs on the
-    # card and must reject) and at 1024 x 4 (a host-routed product): the
+    # card and must reject) and at 1024 x 2 (a host-routed product): the
     # fallback must attribute it to exactly its obligation
     corrupt = {}
-    for groups in (GROUPS, 4):
+    for groups in (GROUPS, 2):
         obs = work.obligations(b"corrupt-%d" % groups, groups)
         bad = (groups // 2) * N_NODES + 17
         ob = obs[bad]
@@ -584,10 +680,11 @@ def main() -> int:
     plain, win_g2_plain_ms = timed(lambda: cuda_ec.windowed_g2_plain(g2_pts, dig))
     record_err("win_g2", got, plain, f"at the DKG's K={entries}")
     del plain, got, g2_pts
-    win_g2_bound = windowed_bound(entries, dig.shape[1], g2=True)
+    win_g2_bound = windowed_bound(dig, g2=True)
     log(
         f"win_g2 K={entries} nwin={dig.shape[1]}: kernel {win_g2_ms} ms, plain "
-        f"{win_g2_plain_ms} ms, bound {win_g2_bound[0]} ms ({win_g2_bound[1]}), exact"
+        f"{win_g2_plain_ms} ms, bound {win_g2_bound[0]} ms ({win_g2_bound[1]}), "
+        f"equal at canonical values"
     )
 
     # -- 5. scan_g1 through its entry point, then timed --------------------
@@ -626,6 +723,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches,
             "max_abs_err": max_err[name],
+            "compared": compared[name],
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound[0],
@@ -645,6 +743,7 @@ def main() -> int:
                 mesh_launches["ring_permute"], ring_ms, ring_plain_ms, ring_b, ring_lib_ms),
         ]
     }
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start} s")
     log(json.dumps(kernels_line))
     log(card_line())
     log(

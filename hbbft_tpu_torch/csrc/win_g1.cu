@@ -4,24 +4,39 @@
 // (g2=False), i.e. `_windowed_kernel` run through `_run_tiles`'
 // pl.pallas_call (exec name win_g1).  Per point k·P over BLS12-381 G1:
 // build the table j·P (j = 0..15) with complete adds, then for each 4-bit
-// window, msb first, 4 doublings and one complete add of table[digit].
-// The field and the complete addition are bls_fq.cuh's, limb for limb
-// the reference's, so the output equals the plain PyTorch version bit for
-// bit.
+// window, msb first, 4 doublings and one complete add of table[digit]
+// (bls_mont.cuh's windowed_ladder).  The output is the canonical residue
+// of each coordinate, equal at canonical values to the plain PyTorch
+// version (ops/cuda_ec.py windowed_plain); the limbs differ from its
+// lazily reduced ones.
 //
-// Design (simple and right first): one thread per point, 128-thread
-// blocks.  The Mosaic masked cascade (pallas_ec.py:263-268) becomes an
-// indexed read of table[d]: the scalars are public Fiat–Shamir
-// coefficients, so a data-dependent read leaks nothing.  The 16-entry
-// table (7.3 KB a thread) lives in local memory.
+// What bounds it on the card: 32×32→64-bit multiplies.  A point takes
+// 14 + 5·nwin complete adds of 12 Fq products, each 300 partial products
+// (576 IMAD issue slots; chip_smoke.py's bound_ms counts them, and the
+// squares of each doubling, as the function needs them); the bytes
+// (limbs in and out, digits in) are ~1 KB a point, and the 2.3 KB table
+// a thread adds ~5 KB of local traffic a point at 24 windows — well
+// under a millisecond a launch.
 //
-// What bounds it on the card: int32 multiply-adds.  Each complete add is
-// 12 field products of 38×38 = 1,444 multiply-adds plus the ~1,550 of
-// their folds, and a point takes 14 + 5·nwin adds; the bytes moved (limbs
-// in and out, digits in) are ~0.5 KB a point.  The layout at the wrapper
-// is the reference's [K, 3, 38] int32 points and [K, nwin] int32 digits.
+// Design: one thread per point.  bls_mont.cuh keeps each coordinate in
+// 12 Montgomery words and inlines every field routine but the product (a
+// call on register values), so the accumulator and every temporary of
+// the complete add live in registers (212, no spills); only the 16-entry
+// table (16 × 144 B) is in local memory, read once a window.  It cannot
+// move to shared memory: the 256 threads an SM resident at 212 registers
+// would need 590 KB of it (227 KB is the most a block gets), and capping
+// registers to fit 4 blocks an SM (one wave for 65,536 points) adds
+// spills and loses.  The Mosaic masked
+// cascade (pallas_ec.py:263-268) becomes an indexed read of table[d]: the
+// scalars are public Fiat–Shamir coefficients, so a data-dependent read
+// leaks nothing.  THREADS = 128 with no occupancy floor (the
+// __launch_bounds__ minimum blocks, which caps the registers a thread)
+// was the fastest launch shape of scripts/torch_win_sweep.py.
+//
+// The layout at the wrapper is the reference's [K, 3, 38] int32 points
+// (limbs in [−2^12, 2^12]) and [K, nwin] int32 digits.
 
-#include "bls_fq.cuh"
+#include "bls_mont.cuh"
 
 namespace {
 
@@ -32,8 +47,9 @@ win_g1_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ digit
               int32_t* __restrict__ out, int K, int nwin) {
   const int k = blockIdx.x * THREADS + threadIdx.x;
   if (k >= K) return;
-  windowed_ladder<Fq>(pts + (size_t)k * 3 * L, digits + (size_t)k * nwin, nwin,
-                      out + (size_t)k * 3 * L);
+  constexpr int P = 3 * FqM::LIMBS;
+  pt_store<FqM>(windowed_ladder<FqM>(pts + (size_t)k * P, digits + (size_t)k * nwin, nwin),
+                out + (size_t)k * P);
 }
 
 }  // namespace

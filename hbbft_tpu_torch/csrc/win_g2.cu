@@ -3,88 +3,60 @@
 // Replaces the TPU kernel hbbft_tpu/ops/pallas_ec.py:_make_windowed_kernel
 // (g2=True), i.e. `_windowed_kernel_g2` run through `_run_tiles`'
 // pl.pallas_call (exec name win_g2).  Per point k·P on the twist
-// E'(Fq2): y² = x³ + 4(1+u), the same ladder as win_g1 (bls_fq.cuh's
+// E'(Fq2): y² = x³ + 4(1+u), the same ladder as win_g1 (bls_mont.cuh's
 // windowed_ladder): the table j·P (j = 0..15) by complete adds, then per
 // 4-bit window, msb first, 4 doublings and one complete add of
-// table[digit] (a digit outside 0..15 selects the identity).
+// table[digit] (a digit outside 0..15 selects the identity), with
+// 3·b = 12(1+u).  The output is the canonical residue of each coordinate,
+// equal at canonical values to the plain PyTorch version (ops/cuda_ec.py
+// windowed_g2_plain).
 //
-// Fq2 = Fq[u]/(u²+1) over bls_fq.cuh's Fq routines, in the operation
-// order of pallas_ec._KernelField2 / ops/ec.py Fq2Ops: Karatsuba
-// (a0b0 − a1b1, (a0+a1)(b0+b1) − a0b0 − a1b1) and 3·b = 12(1+u), i.e.
-// mul_b3(a) = (12·(a0 − a1), 12·(a0 + a1)).  Limbs equal the plain
-// PyTorch version's exactly.
+// What bounds it on the card: 32×32→64-bit multiplies.  A complete add is
+// 12 Fq2 products = 36 Fq products (Karatsuba) of 300 partial products
+// (576 IMAD issue slots), and a point takes 14 + 5·nwin adds; the bytes
+// (points in and out, digits in) are ~2 KB a point.
 //
-// Design (simple and right first): one thread per point, 128-thread
-// blocks, an indexed read of table[d] in place of the Mosaic 15-way
-// cascade (public Fiat–Shamir scalars: the data-dependent read leaks
-// nothing).  A point is 228 int32 (912 B), so the table is 14.6 KB a
-// thread, in local memory.  The Fq2 routines are __noinline__, built on
-// the shared __noinline__ Fq ones, which keeps the build short.
+// Design: two threads a point (bls_mont.cuh's Fq2Lane).  One thread a
+// point (Karatsuba, 3 Fq products an Fq2 product; a variant of
+// scripts/torch_win_sweep.py) holds a 72-word point, and the accumulator
+// and the complete add's temporaries overrun the 255 registers (ptxas
+// spills ~1.3 KB).  Here lane h of a pair holds component c_h of every
+// Fq2 value — 36 words a point, as in G1, 254 registers and no spills —
+// and a product exchanges the operands' other halves with the partner
+// lane by shuffles: 4 Fq products an Fq2 product where Karatsuba needs 3,
+// for ~6 % less time (PERF.md).  The field values, and so the canonical
+// output, are the same.  Every field routine but the Fq product (a call
+// on register values) is inlined.  Each lane's 16-entry table (2.3 KB)
+// lives in local memory, read once a window; an indexed read of
+// table[d] takes the place of the Mosaic 15-way cascade (public
+// Fiat–Shamir scalars: the data-dependent read leaks nothing).
+// THREADS = 128 with no occupancy floor was the fastest launch shape of
+// the sweep (capping registers to fit more blocks adds spills and loses).
 //
-// What bounds it on the card: int32 multiply-adds.  A complete add is 12
-// Fq2 products = 36 Fq products of 38×38 = 1,444 multiply-adds (plus the
-// lazy schedule's folds, overhead of the representation), and a point
-// takes 14 + 5·nwin adds; the bytes (points in and out, digits in) are
-// ~2 KB a point.  The layout at the wrapper is the reference's
-// [K, 3, 2, 38] int32 points and [K, nwin] int32 digits.
+// The layout at the wrapper is the reference's [K, 3, 2, 38] int32 points
+// (limbs in [−2^12, 2^12]) and [K, nwin] int32 digits.
 
-#include "bls_fq.cuh"
+#include "bls_mont.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
-
-// Fq2 ops on [2][L] elements (c0 then c1).  Each reads all of its inputs
-// before it writes `out`, so `out` may alias an input.
-__device__ __noinline__ void fq2_add(const int32_t* a, const int32_t* b, int32_t* out) {
-  fe_add(a, b, out);
-  fe_add(a + L, b + L, out + L);
-}
-
-__device__ __noinline__ void fq2_sub(const int32_t* a, const int32_t* b, int32_t* out) {
-  fe_sub(a, b, out);
-  fe_sub(a + L, b + L, out + L);
-}
-
-__device__ __noinline__ void fq2_mul(const int32_t* a, const int32_t* b, int32_t* out) {
-  int32_t t0[L], t1[L], sa[L], sb[L], cross[L];
-  fe_mul(a, b, t0);
-  fe_mul(a + L, b + L, t1);
-  fe_add(a, a + L, sa);
-  fe_add(b, b + L, sb);
-  fe_mul(sa, sb, cross);
-  fe_sub(cross, t0, cross);
-  fe_sub(cross, t1, cross);
-  fe_sub(t0, t1, out);
-#pragma unroll
-  for (int i = 0; i < L; ++i) out[L + i] = cross[i];
-}
-
-__device__ __noinline__ void fq2_mul_b3(const int32_t* a, int32_t* out) {
-  int32_t d[L], s[L];
-  fe_sub(a, a + L, d);
-  fe_add(a, a + L, s);
-  fe_mul_small(d, 12, out);
-  fe_mul_small(s, 12, out + L);
-}
-
-// The field of G2 for bls_fq.cuh's point_add / windowed_ladder.
-struct Fq2 {
-  static constexpr int N = 2 * L;
-  __device__ static void add(const int32_t* a, const int32_t* b, int32_t* o) { fq2_add(a, b, o); }
-  __device__ static void sub(const int32_t* a, const int32_t* b, int32_t* o) { fq2_sub(a, b, o); }
-  __device__ static void mul(const int32_t* a, const int32_t* b, int32_t* o) { fq2_mul(a, b, o); }
-  __device__ static void mul_b3(const int32_t* a, int32_t* o) { fq2_mul_b3(a, o); }
-};
+// a lane pair never straddles a warp or a block, and every warp is whole
+// for the full-mask shuffles
+static_assert(THREADS % 32 == 0, "whole warps a block");
+constexpr int LANES = 2;  // threads a point
+constexpr int P = 3 * Fq2Lane::LIMBS;  // int32 a point at the wrapper
 
 __global__ void __launch_bounds__(THREADS)
 win_g2_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ digits,
               int32_t* __restrict__ out, int K, int nwin) {
-  const int k = blockIdx.x * THREADS + threadIdx.x;
-  if (k >= K) return;
-  constexpr int P = 3 * Fq2::N;
-  windowed_ladder<Fq2>(pts + (size_t)k * P, digits + (size_t)k * nwin, nwin,
-                       out + (size_t)k * P);
+  // every lane of a warp takes part in the shuffles: a pair past the end
+  // recomputes the last point and stores nothing
+  const int t = blockIdx.x * THREADS + threadIdx.x;
+  const int k = min(t / LANES, K - 1);
+  const Pt<Fq2Lane> acc =
+      windowed_ladder<Fq2Lane>(pts + (size_t)k * P, digits + (size_t)k * nwin, nwin);
+  if (t / LANES < K) pt_store<Fq2Lane>(acc, out + (size_t)k * P);
 }
 
 }  // namespace
@@ -97,7 +69,7 @@ extern "C" {
 int win_g2_launch(const void* pts, const void* digits, void* out, int K, int nwin,
                   void* stream) {
   if (K > 0) {
-    const int blocks = (K + THREADS - 1) / THREADS;
+    const int blocks = (LANES * K + THREADS - 1) / THREADS;
     win_g2_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(pts), static_cast<const int32_t*>(digits),
         static_cast<int32_t*>(out), K, nwin);

@@ -105,8 +105,9 @@ class VectorizedDkg:
 
     # fused MSMs of at least this many commitment entries run on the
     # device, smaller ones on the native host (the reference's rule,
-    # dkg.py:770)
-    G2_DEVICE_MIN = 1 << 16
+    # dkg.py:770, at the size where an H100 overtakes native: it loses
+    # at 256 entries and wins from 512, scripts/torch_g2_band.py)
+    G2_DEVICE_MIN = 1 << 9
 
     def __init__(
         self,

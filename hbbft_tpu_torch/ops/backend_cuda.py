@@ -46,13 +46,13 @@ class CudaBackend(CpuBackend):
     name = "cuda"
 
     # G1 MSMs below these many points run native host Pippenger: the
-    # one-thread-per-point window ladder costs ~0.15-0.2 s of latency at
-    # any K.  On an H100 the product form (96-bit s-scalars on the card
-    # against a flat 255-bit host MSM) wins from K = 8,192; a flat MSM
-    # with 128-bit coefficients loses at 32,768 and wins at 65,536
-    # (scripts/torch_g1_band.py; numbers in PERF.md).
-    G1_DEVICE_MIN = 1 << 16
-    G1_PRODUCT_DEVICE_MIN = 1 << 13
+    # card's fixed cost (wire copy, torch unpack, group trees, a one-wave
+    # ladder of ~6 ms) is tens of ms at any K.  On an H100 the product
+    # form (96-bit s-scalars on the card against a flat 255-bit host MSM)
+    # and a flat MSM with 128-bit coefficients both lose at 1,024 points
+    # and win from 4,096 (scripts/torch_g1_band.py; numbers in PERF.md).
+    G1_DEVICE_MIN = 1 << 12
+    G1_PRODUCT_DEVICE_MIN = 1 << 12
 
     def __init__(self, device: DeviceLike = None, mesh=None):
         self.device = resolve_device(device)

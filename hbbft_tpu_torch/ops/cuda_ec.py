@@ -1,8 +1,9 @@
 """The port's CUDA kernels and their plain twins.
 
 The port of ``hbbft_tpu/ops/pallas_ec.py``.  Its four Pallas kernels
-become CUDA C++ written by hand for Hopper; the three scalar
-multiplications share ``csrc/bls_fq.cuh``:
+become CUDA C++ written by hand for Hopper; the two windowed scalar
+multiplications share the Montgomery field of ``csrc/bls_mont.cuh``,
+and ``scan_g1`` keeps the reference's limb field of ``csrc/bls_fq.cuh``:
 
 - ``_make_windowed_kernel(g2=False)`` (exec name ``win_g1``) →
   ``csrc/win_g1.cu``, wrapper :func:`win_g1`, entry
@@ -19,9 +20,13 @@ multiplications share ``csrc/bls_fq.cuh``:
 Each wrapper, on a CUDA tensor, launches its kernel (or raises) — never
 a fallback; on a CPU tensor it runs the kernel's plain PyTorch version
 (:func:`windowed_plain`, :func:`windowed_g2_plain`, :func:`scan_plain`),
-the same schedule on ``ops/ec.py``'s ``PointKernel``.  Kernel and twin
-agree limb for limb (same field schedule, same operation order), so
-``chip_smoke.py`` compares them exactly.  ``LAUNCHES`` counts kernel
+the same schedule on ``ops/ec.py``'s ``PointKernel``.  ``scan_g1`` and
+its twin agree limb for limb (same field schedule, same operation
+order).  ``win_g1`` and ``win_g2`` compute the same field operations in
+the same order in Montgomery form and return each coordinate's
+canonical residue, so they agree with their twins at canonical values
+(``limbs.fq().canon``), coordinate by coordinate, and ``chip_smoke.py``
+compares them so, with tolerance 0.  ``LAUNCHES`` counts kernel
 launches (and nothing else), so a run can show that a path went through
 a kernel.  The layouts at these functions are the reference's:
 ``[K, 3, 38]`` (G1) or ``[K, 3, 2, 38]`` (G2) int32 points and

@@ -2,8 +2,9 @@
 
 The port of ``hbbft_tpu/ops/limbs.py``.  Same representation, same
 schedule, so the limbs are bit-identical to the JAX reference (and to
-the CUDA kernel of ``csrc/win_g1.cu``, which follows this file line for
-line):
+the CUDA field of ``csrc/bls_fq.cuh``, which follows this file line for
+line; the windowed kernels' Montgomery field, ``csrc/bls_mont.cuh``,
+takes these limbs in and writes canonical ones out):
 
 - an element is ``L = 38`` limbs of ``LIMB_BITS = 11`` bits, little-
   endian, in ``int32`` — 418 bits of capacity, 37 bits of headroom

@@ -28,7 +28,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-SIZES = tuple(1 << e for e in range(12, 19))
+# from a small DKG's fused check up; the card has led native from 2^12
+# on (PERF.md), so the larger sizes stop at 2^16
+SIZES = (1 << 8, 1 << 9, 1 << 10, 1 << 11, 1 << 12, 1 << 14, 1 << 16)
 REPS = 3
 
 

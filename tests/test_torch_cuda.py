@@ -5,9 +5,13 @@ a host without a card they skip.  They import only torch and the port,
 so they run on the GPU machine as they are:
 ``python -m pytest tests/test_torch_cuda.py -q``.
 
-``win_g1``, ``win_g2`` and ``scan_g1`` must equal their plain PyTorch
-versions limb for limb (exact) and native ``hb_g1_mul`` / ``hb_g2_mul``
-canonically, and count exactly one launch per call; a small DKG with
+``win_g1`` and ``win_g2`` must equal their plain PyTorch versions at
+canonical values (``limbs.fq().canon``, tolerance 0) and return
+canonical limbs, also on identity rows, zero scalars, digits outside
+0..15 and points given in non-canonical limbs; ``scan_g1`` must equal
+its plain version limb for limb.  All three must equal native
+``hb_g1_mul`` / ``hb_g2_mul`` canonically and count exactly one launch
+per call; a small DKG with
 its fused MSM forced onto the card must give the CPU run's keys.
 ``ring_permute`` must equal its plain version byte for byte on a
 4-shard mesh, whichever shard's stream runs late, and count one launch
@@ -31,6 +35,17 @@ def dev():
     return torch.device("cuda")
 
 
+def _assert_canonical_equal(got, plain):
+    """The kernel's limbs are canonical and equal the plain version's
+    canonical residues, coordinate by coordinate."""
+    from hbbft_tpu_torch.ops import limbs as LB
+
+    f = LB.fq()
+    torch.cuda.synchronize()
+    assert torch.equal(f.canon(got), got)
+    assert torch.equal(got, f.canon(plain))
+
+
 @pytest.mark.parametrize("bits", [96, 255])
 def test_win_g1_kernel_matches_plain_and_native(dev, bits):
     from hbbft_tpu_torch import native as NT
@@ -51,9 +66,7 @@ def test_win_g1_kernel_matches_plain_and_native(dev, bits):
     before = cuda_ec.LAUNCHES["win_g1"]
     got = cuda_ec.win_g1(pts, digits)
     assert cuda_ec.LAUNCHES["win_g1"] == before + 1
-    plain = cuda_ec.windowed_plain(pts, digits)
-    torch.cuda.synchronize()
-    assert torch.equal(got, plain)
+    _assert_canonical_equal(got, cuda_ec.windowed_plain(pts, digits))
     host = got.cpu().numpy()
     for i in range(k):
         assert NT.g1_wire(ec.g1_from_limbs(host[i])) == NT.g1_mul(wires[i], scalars[i])
@@ -86,12 +99,77 @@ def test_win_g2_kernel_matches_plain_and_native(dev):
     before = cuda_ec.LAUNCHES["win_g2"]
     got = cuda_ec.win_g2(pts, digits)
     assert cuda_ec.LAUNCHES["win_g2"] == before + 1
-    plain = cuda_ec.windowed_g2_plain(pts, digits)
-    torch.cuda.synchronize()
-    assert torch.equal(got, plain)
+    _assert_canonical_equal(got, cuda_ec.windowed_g2_plain(pts, digits))
     host = got.cpu().numpy()
     for i in range(k):
         assert NT.g2_wire(ec.g2_from_limbs(host[i])) == NT.g2_mul(wires[i], scalars[i])
+
+
+def _non_canonical(limbs: np.ndarray, rng: random.Random) -> np.ndarray:
+    """The same field values in other limbs, every limb in [−2^12, 2^12):
+    per element one of v + p, a borrowed form (+2048 on limb i, −1 on
+    limb i + 1: limbs in [−1, 4094], limb 37 = −1) and v + k·p just
+    below 2^408."""
+    from hbbft_tpu_torch.ops import limbs as LB
+
+    f = LB.fq()
+    flat = limbs.reshape(-1, LB.FQ_LIMBS).astype(np.int64)
+    out = np.empty_like(flat)
+    p_limbs = LB.int_to_limbs(f.p, LB.FQ_LIMBS).astype(np.int64)
+    for r in range(flat.shape[0]):
+        v = LB.limbs_to_int(flat[r])
+        form = rng.randrange(3)
+        if form == 0:
+            out[r] = flat[r] + p_limbs
+        elif form == 1:
+            shift = np.full(LB.FQ_LIMBS, 2047, dtype=np.int64)
+            shift[0], shift[-1] = 2048, -1
+            out[r] = flat[r] + shift
+        else:
+            out[r] = LB.int_to_limbs(v + ((1 << 408) - 1 - v) // f.p * f.p, LB.FQ_LIMBS)
+        assert LB.limbs_to_int(out[r]) % f.p == v % f.p
+    assert np.abs(out).max() < 4096
+    return out.reshape(limbs.shape).astype(np.int32)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_win_kernels_on_edge_inputs(dev, group):
+    """Non-canonical input limbs (negative ones included), identity
+    rows, zero scalars and digits outside 0..15 (which select the
+    identity): the kernel's canonical limbs equal the plain version's
+    canonical residues, and rows with in-range digits are native k·P."""
+    from hbbft_tpu_torch import native as NT
+    from hbbft_tpu_torch.crypto import fields as F
+    from hbbft_tpu_torch.crypto.curve import G1_GEN
+    from hbbft_tpu_torch.ops import cuda_ec, ec, packed_msm as PM
+
+    rng = random.Random(0xED6E)
+    k = 200
+    if group == "g1":
+        wires = NT.g1_mul_many(NT.g1_wire(G1_GEN), [rng.randrange(1, F.R) for _ in range(k)])
+        wires[7] = bytes(96)
+        arr = np.frombuffer(b"".join(wires), dtype=np.uint8).reshape(k, 96).copy()
+        pts = PM._wire_points_g1(torch.from_numpy(arr).to(dev))
+        kernel, plain, mul = cuda_ec.win_g1, cuda_ec.windowed_plain, NT.g1_mul
+        to_wire, from_limbs = NT.g1_wire, ec.g1_from_limbs
+    else:
+        wires, pts = _g2_case(dev, rng, k)
+        kernel, plain, mul = cuda_ec.win_g2, cuda_ec.windowed_g2_plain, NT.g2_mul
+        to_wire, from_limbs = NT.g2_wire, ec.g2_from_limbs
+    pts = torch.from_numpy(_non_canonical(pts.cpu().numpy(), rng)).to(dev)
+    scalars = [rng.randrange(0, F.R) for _ in range(k)]
+    scalars[3] = scalars[11] = 0
+    digits = PM._scalar_digits(torch.from_numpy(PM.scalar_bytes_batch(scalars, 32)).to(dev))
+    digits = digits.cpu()
+    bad = [5, 9, 13]
+    digits[5, 0], digits[9, 17], digits[13, -1] = 16, -1, 1 << 20
+    digits = digits.to(dev)
+    got = kernel(pts, digits)
+    _assert_canonical_equal(got, plain(pts, digits))
+    host = got.cpu().numpy()
+    for i in range(k):
+        if i not in bad:
+            assert to_wire(from_limbs(host[i])) == mul(wires[i], scalars[i]), i
 
 
 def test_scan_g1_kernel_matches_plain_and_native(dev):

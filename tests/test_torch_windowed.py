@@ -5,9 +5,10 @@ must give the reference Pallas kernel's limbs exactly
 (``pallas_ec.scalar_mul_windowed(..., interpret=True)``; that compile
 takes minutes on a CPU, so the exact-limb case is marked slow) and the
 reference host curve's k·P by wire bytes (tier-1, at the flush's
-96-bit scalar width).  The constant tables of the kernels' shared
-header must equal the Python field's, since the kernels cannot run
-here, and an edit to that header must change every kernel's build tag.
+96-bit scalar width).  The constant tables of the limb-field header
+(``csrc/bls_fq.cuh``) must equal the Python field's, since the kernels
+cannot run here, and an edit to a header must change every kernel's
+build tag.
 """
 
 import random
@@ -103,15 +104,18 @@ def test_win_g1_checks_its_inputs():
 
 
 def test_cuda_source_constants_match_field():
-    """The kernels' __constant__ fold table and subtraction pad, in the
-    shared header every EC kernel source includes, are the field's
-    tables (the kernels run only on the card).  The ring kernel is a
-    copy and includes no field code."""
+    """The __constant__ fold table and subtraction pad of the limb-field
+    header are the field's tables (the kernels run only on the card).
+    ``scan_g1`` includes that header; the windowed kernels include the
+    Montgomery header instead (its tables: tests/test_torch_mont.py);
+    the ring kernel is a copy and includes no field code."""
     header = kernels.CSRC / "bls_fq.cuh"
+    includes = {"win_g1": "bls_mont.cuh", "win_g2": "bls_mont.cuh", "scan_g1": "bls_fq.cuh"}
     for name, path in kernels.SOURCES.items():
-        includes = '#include "bls_fq.cuh"' in path.read_text()
-        assert includes == (name != "ring_permute"), name
-        assert "FOLD" not in path.read_text(), name  # one copy of the tables
+        text = path.read_text()
+        found = [h for h in ("bls_fq.cuh", "bls_mont.cuh") if f'#include "{h}"' in text]
+        assert found == ([includes[name]] if name in includes else []), name
+        assert "FOLD" not in text, name  # one copy of the tables
     src = header.read_text()
 
     def table(name):
@@ -144,3 +148,29 @@ def test_header_edit_changes_every_kernel_tag(tmp_path, monkeypatch):
     ring.write_text(ring.read_text() + "\n// edited\n")
     again = {n: kernels.lib_path(n) for n in kernels.SOURCES}
     assert [n for n in again if again[n] != after[n]] == ["ring_permute"]
+
+
+def test_sweep_variants_patch_the_shipped_sources():
+    """Every launch-shape and build variant of scripts/torch_win_sweep.py
+    is a text patch of a copy of the sources: each must find its
+    anchors in the shipped files and change them, or the sweep would
+    time the default under another name.  The shipped sources carry no
+    variant switches."""
+    import importlib.util
+
+    path = kernels.PKG_DIR.parent / "scripts" / "torch_win_sweep.py"
+    spec = importlib.util.spec_from_file_location("torch_win_sweep", path)
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    shipped = {p.name: p.read_text() for p in kernels.CSRC.iterdir() if p.suffix in (".cu", ".cuh")}
+    for text in shipped.values():
+        assert "#ifndef WIN_" not in text and "FE_MUL_" not in text
+    for name, variants in sweep.VARIANTS.items():
+        labels = [label for label, _ in variants]
+        assert len(set(labels)) == len(labels), name
+        for label, patches in variants:
+            files = dict(shipped)
+            for patch in patches:
+                patch(files, name)
+            assert files != shipped, (name, label)
+            assert files["ring_permute.cu"] == shipped["ring_permute.cu"]
