@@ -11,25 +11,27 @@ In order, and with no phase's failure caught:
 2. **Kernels against their plain versions** — at K = 1000 (not a
    multiple of 128) on random r-torsion points with identity rows and
    zero scalars: ``win_g1`` at 96- and 255-bit scalars, ``win_g2`` and
-   ``scan_g1`` at 255 bits.  ``win_g1`` and ``win_g2`` compute in
-   Montgomery form and return canonical limbs: they must equal the plain
-   PyTorch version on the card at canonical values (``canon`` of both,
-   coordinate by coordinate, tolerance 0); ``scan_g1`` must equal its
-   plain version limb for limb; all three must equal native
-   ``hb_g1_mul`` / ``hb_g2_mul`` canonically.  ``win_g1`` is then timed
-   at the flush's shape (K = 65,536, 96-bit scalars), and as four
-   launches of 16,384 points on the four streams of a 4-shard mesh
-   (equal to the single launch).
+   ``scan_g1`` at 255 bits.  The three compute in Montgomery form and
+   return canonical limbs: they must equal the plain PyTorch version on
+   the card at canonical values (``canon`` of both, coordinate by
+   coordinate, tolerance 0) and native ``hb_g1_mul`` / ``hb_g2_mul``
+   canonically.  ``win_g1`` is then timed at the flush's shape (K =
+   65,536, 96-bit scalars), and as four launches of 16,384 points on the
+   four streams of a 4-shard mesh (equal to the single launch).
 2b. **ring_permute against its plain version** — on a 4-shard mesh
    (shard j on card j % device_count), random int32 buffers of [64, 3,
    38] (the mesh flush's group partials) and [5, 3, 38] (not a whole
    number of 16-byte words per shard): byte equality, also with a long
    kernel queued on each shard's stream in turn.  With one card the
-   cross-card leg is not run and a line says so.  The kernel, the
-   plain version and ``Tensor.copy_`` are timed per launch twice: 200
-   back-to-back calls paced by the host, and 200 calls enqueued behind
-   a ``torch.cuda._sleep`` so that they run back to back on the card's
-   own timeline (the figure the ``kernels`` line reports).
+   cross-card leg is not run and a line says so.  One round's launch at
+   the flush's message shape (the first card's senders: all four shards
+   on one card) is timed against the library call that makes the same
+   copies (``torch._foreach_copy_``), four ``Tensor.copy_`` calls and
+   the plain version's round; the one-job ``ring_copy`` against one
+   ``copy_``.  Each twice: 200 back-to-back calls paced by the host, and
+   200 calls enqueued behind a ``torch.cuda._sleep`` so that they run
+   back to back on the card's own timeline (the figures the ``kernels``
+   line reports).  Then the whole ring step, paced by the host.
 3. **The flush at full width** — N = 1024 validators × 64 fresh
    ciphertexts = 65,536 real BLS12-381 decryption shares per flush,
    settled by ``BatchingBackend(inner=CudaBackend()).prefetch`` three
@@ -42,9 +44,10 @@ In order, and with no phase's failure caught:
    ``BatchingBackend(inner=CudaBackend(mesh=make_mesh(4))).prefetch``:
    4 shards of 16,384 points, the [64, 3, 38] group partials
    ring-reduced in 3 rounds.  Every flush must verify every share with
-   no fallback, launch ``win_g1`` 4 times and ``ring_permute`` 12
-   times, leave the four shards' replicated sums the same points and
-   give the single-device flush's verdicts; the corrupted 1024 × 64
+   no fallback, launch ``win_g1`` 4 times and ``ring_permute`` once per
+   sending card a round (3 times on one card, 12 on four), leave the
+   four shards' replicated sums the same points and give the
+   single-device flush's verdicts; the corrupted 1024 × 64
    batch must be rejected on the card and attributed as the
    single-device flush attributed it.
 3c. **The flat sharded MSM** — ``CudaBackend(mesh=make_mesh(4)).g1_msm``
@@ -269,8 +272,8 @@ def main() -> int:
 
     rng = random.Random(SEED)
     max_err = {name: 0 for name in kernels.SOURCES}
-    # the windowed kernels are held at canonical values, the others exactly
-    compared = {"win_g1": "canonical", "win_g2": "canonical", "scan_g1": "limbs",
+    # the scalar-mul kernels are held at canonical values, the ring byte for byte
+    compared = {"win_g1": "canonical", "win_g2": "canonical", "scan_g1": "canonical",
                 "ring_permute": "bytes"}
 
     def record_err(name: str, got, plain, what: str) -> None:
@@ -340,7 +343,7 @@ def main() -> int:
             for i in range(K_CHECK):
                 if NT.g1_wire(g1_from_limbs(host[i])) != NT.g1_mul(wires[i], scalars[i]):
                     fail(f"scan_g1 row {i} is not k·P")
-            log(f"scan_g1 K={K_CHECK} 255-bit: exact vs plain, canonical vs native: ok")
+            log(f"scan_g1 K={K_CHECK} 255-bit: canonical values vs plain, canonical vs native: ok")
     g2_wires, g2_pts = g2_points(K_CHECK, 10)
     scalars = scalars_with_zeros(K_CHECK, 255)
     dig = digits_for(scalars, 32)
@@ -421,17 +424,19 @@ def main() -> int:
             f"ring_permute {mesh} [{rows}, 3, 38] int32: byte-equal to plain with every "
             f"stream order tried ({'across cards' if cross_card else 'one card'})"
         )
-    # per launch at the flush's message shape: the kernel (one launch on
-    # the current stream), its plain version (a ring step / shards) and
-    # the library copy
+    # one round's launch at the flush's message shape: the first card's
+    # senders (every shard on one card) in one launch, against the library
+    # call making the same copies, four copy_ calls and the plain round
     msg = [
         torch.from_numpy(
             gen.integers(-(2**31), 2**31, size=(GROUPS, 3, FQ_LIMBS), dtype=np.int32)
         ).to(d)
         for d in mesh.devices
     ]
-    src, dst = msg[0], torch.empty_like(msg[1])
-    cur = torch.cuda.current_stream(src.device)
+    senders = cuda_ec.ring_plan(mesh.devices)[0]
+    srcs = [msg[j] for j in senders]
+    dsts = [torch.empty_like(msg[(j + 1) % MESH_SHARDS]) for j in senders]
+    cur = torch.cuda.current_stream(srcs[0].device)
 
     def device_timed(fn, reps: int):
         """ms per call on the card's own timeline: the ``reps`` calls are
@@ -452,26 +457,47 @@ def main() -> int:
         slept_ms = marks[0].elapsed_time(marks[1])
         if enqueue_ms >= slept_ms:
             fail(f"{reps} calls took {enqueue_ms} ms to enqueue, the card slept {slept_ms} ms")
-        return marks[1].elapsed_time(marks[2]) / reps, enqueue_ms, slept_ms
+        return marks[1].elapsed_time(marks[2]) / reps
 
-    cuda_ec.ring_copy(src, dst, cur)  # warm-up
-    _, ring_host_ms = timed(lambda: cuda_ec.ring_copy(src, dst, cur), RING_REPS)
-    ring_ms, ring_enq, ring_slept = device_timed(lambda: cuda_ec.ring_copy(src, dst, cur), RING_REPS)
-    record_err("ring_permute", dst, src.to(dst.device), "timed copy")
-    _, ring_lib_host_ms = timed(lambda: dst.copy_(src), RING_REPS)
-    ring_lib_ms, lib_enq, lib_slept = device_timed(lambda: dst.copy_(src), RING_REPS)
-    _, ring_plain_host_ms = timed(lambda: cuda_ec.ring_permute_plain(msg, mesh), RING_REPS)
-    ring_plain_ms, plain_enq, plain_slept = device_timed(
-        lambda: cuda_ec.ring_permute_plain(msg, mesh), RING_REPS
-    )
-    ring_plain_host_ms /= MESH_SHARDS
-    ring_plain_ms /= MESH_SHARDS
+    def four_copies():
+        for src, dst in zip(srcs, dsts):
+            dst.copy_(src)
+
+    ring_calls = {
+        "kernel, one launch": lambda: cuda_ec.ring_copies(srcs, dsts, cur),
+        "_foreach_copy_": lambda: torch._foreach_copy_(dsts, srcs),
+        f"{len(srcs)} x copy_": four_copies,
+        "plain round": lambda: cuda_ec.ring_permute_plain(msg, mesh),
+        "ring_copy, one job": lambda: cuda_ec.ring_copy(srcs[0], dsts[0], cur),
+        "one copy_": lambda: dsts[0].copy_(srcs[0]),
+    }
+    on_card, by_host = {}, {}
+    for what, fn in ring_calls.items():
+        fn()  # warm-up
+        on_card[what] = device_timed(fn, RING_REPS)
+        by_host[what] = timed(fn, RING_REPS)[1]
+    # the library copies above wrote the same bytes: clear them so that
+    # the check below sees only the kernel's (on the receivers' cards,
+    # whose streams the launch does not wait on)
+    for dst in dsts:
+        dst.fill_(-1)
+        torch.cuda.synchronize(dst.device)
+    cuda_ec.ring_copies(srcs, dsts, cur)
+    for j, (src, dst) in enumerate(zip(srcs, dsts)):
+        record_err("ring_permute", dst, src.to(dst.device), f"timed round, job {j}")
+    ring_ms = on_card["kernel, one launch"]
+    ring_lib_ms = on_card["_foreach_copy_"]
+    # the plain round moves every shard's message; this launch, its senders'
+    ring_plain_ms = on_card["plain round"] * len(senders) / MESH_SHARDS
     log(
-        f"ring_permute [{GROUPS}, 3, 38] per launch on the card's timeline ({RING_REPS} "
-        f"enqueued behind a sleep): kernel {ring_ms} ms, plain {ring_plain_ms} ms, copy_ "
-        f"{ring_lib_ms} ms (enqueued in {ring_enq} / {plain_enq} / {lib_enq} ms while the card "
-        f"slept {ring_slept} / {plain_slept} / {lib_slept} ms); paced by the host: kernel "
-        f"{ring_host_ms} ms, plain {ring_plain_host_ms} ms, copy_ {ring_lib_host_ms} ms"
+        f"ring_permute round of {len(srcs)} x [{GROUPS}, 3, 38] int32 from {srcs[0].device}, "
+        f"ms per call on the card's timeline ({RING_REPS} enqueued behind a sleep): "
+        + json.dumps(on_card)
+    )
+    log("ring_permute the same, ms per call paced by the host: " + json.dumps(by_host))
+    log(
+        f"ring_permute one launch vs _foreach_copy_ on the card's timeline: "
+        f"{ring_ms} / {ring_lib_ms} ms = {ring_ms / ring_lib_ms}"
     )
 
     def ring_step():
@@ -479,14 +505,16 @@ def main() -> int:
         return mesh.join(cuda_ec.ring_permute(msg, mesh))
 
     _, step_ms = timed(ring_step, RING_REPS)
-    ring_b = ring_bound(src.numel() * src.element_size(), src.device != dst.device)
+    ring_b = ring_bound(
+        sum(src.nbytes for src in srcs), any(dst.device != srcs[0].device for dst in dsts)
+    )
     log(
-        f"ring_permute [{GROUPS}, 3, 38] per launch: kernel {ring_ms} ms, plain "
-        f"{ring_plain_ms} ms, copy_ {ring_lib_ms} ms, bound {ring_b[0]} ms ({ring_b[1]}); "
-        f"a whole ring step over {MESH_SHARDS} shards (events and allocation included) "
+        f"ring_permute round launch: kernel {ring_ms} ms, plain {ring_plain_ms} ms, "
+        f"_foreach_copy_ {ring_lib_ms} ms, bound {ring_b[0]} ms ({ring_b[1]}); a whole ring "
+        f"step over {MESH_SHARDS} shards paced by the host (events and allocation included) "
         f"{step_ms} ms"
     )
-    del msg, bufs, plain, got
+    del msg, bufs, plain, got, srcs, dsts
 
     # -- 3. the flush at full width --------------------------------------
     work = DecryptionFlushWorkload(N_NODES, rng)
@@ -573,7 +601,11 @@ def main() -> int:
             NT.g1_wire(g1_from_limbs(h[g])) == want[g] for h in host[1:] for g in range(len(want))
         )
 
-    want_launches = {"win_g1": MESH_SHARDS, "ring_permute": MESH_SHARDS * (MESH_SHARDS - 1)}
+    # a round launches the ring kernel once per sending card
+    want_launches = {
+        "win_g1": MESH_SHARDS,
+        "ring_permute": (MESH_SHARDS - 1) * len(set(mesh.devices)),
+    }
     cuda_ec.reset_launches()
     mesh_walls, mesh_phases = [], []
     for obs in batches:
@@ -709,7 +741,7 @@ def main() -> int:
     scan_b = scan_bound(host_bits)
     log(
         f"scan_g1 K={K_TIME} nbits={SCAN_BITS}: kernel {scan_ms} ms, plain "
-        f"{scan_plain_ms} ms, bound {scan_b[0]} ms ({scan_b[1]}), exact; "
+        f"{scan_plain_ms} ms, bound {scan_b[0]} ms ({scan_b[1]}), equal at canonical values; "
         f"entry point checked on 200 rows against native"
     )
 

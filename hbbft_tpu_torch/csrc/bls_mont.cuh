@@ -1,8 +1,9 @@
 // bls_mont.cuh — BLS12-381 base field in Montgomery form for Hopper, and the
-// complete addition and 4-bit windowed ladder over it, shared by win_g1.cu
-// and win_g2.cu.  Each kernel source includes it and is built on its own,
-// so everything lives in an anonymous namespace; kernels.lib_path hashes
-// every *.cuh into each kernel's build tag.
+// complete addition, the 4-bit windowed ladder and the bit-serial ladder
+// over it, shared by win_g1.cu, win_g2.cu and scan_g1.cu.  Each kernel
+// source includes it and is built on its own, so everything lives in an
+// anonymous namespace; kernels.lib_path hashes every *.cuh into each
+// kernel's build tag.
 //
 // Representation: an Fq element is 12 words of 32 bits, little-endian,
 // holding a·R mod p with R = 2^384, always fully reduced to [0, p).
@@ -11,8 +12,11 @@
 // 0x1a0111ea < (2^32 − 1)/2 − 1, so with a, b < p the running sum fits 12
 // words and the per-row carry words vanish.  Every partial step is
 // x = a·b + t + c in uint64, which cannot overflow ((2^32−1)² + 2(2^32−1)
-// = 2^64 − 1).  Add and sub are one carry chain plus a conditional
-// correction by p.  3·b = 12 for G1 is four additions (2a, 4a, 8a,
+// = 2^64 − 1).  A square (fe_sqr) is its own routine: the product's rows
+// with the 12 squares a_i² and the 66 cross products a_i·a_j (i < j) taken
+// once against the words of 2a — 78 products where a product takes 144
+// (bounds at fe_sqr).  Add and sub are one carry chain plus a
+// conditional correction by p.  3·b = 12 for G1 is four additions (2a, 4a, 8a,
 // 8a + 4a): 12·(aR) = (12a)R.
 //
 // Fq2 = Fq[u]/(u² + 1) (Fq2Lane) is split over two threads, one
@@ -21,7 +25,12 @@
 // complete addition is RCB 2015 Alg. 7 (a = 0) in the operation order of
 // ops/ec.py PointKernel.add, and the ladder is the reference's: the table
 // j·P by complete adds, then per 4-bit window, msb first, 4 doublings
-// (complete adds) and one complete add of table[digit].  Exact field
+// (complete adds) and one complete add of table[digit].  The bit-serial
+// ladder (scan_g1) doubles with point_dbl, the complete addition with
+// p == q in the same operation order, its six self-products squared.
+// Fully reduced Montgomery results are unique residues, so fe_sqr(a)
+// equals fe_mul(a, a) word for word and point_dbl(p) equals
+// point_add(p, p).  Exact field
 // arithmetic in the same order gives the same field elements as the
 // plain PyTorch version, so kernel and plain version agree at canonical
 // values (ModField.canon), coordinate by coordinate; their limbs differ.
@@ -41,10 +50,10 @@
 // limbs satisfy ModField's invariant, so the torch trees and the host
 // converters take them unchanged.
 //
-// Every routine but the Fq product is __forceinline__ on values, and the
-// product is a call on register values: coordinates and temporaries are
-// register arrays indexed by constants, with no pointer into the stack.
-// One copy of the product's unrolled code serves all its call sites,
+// Every routine but the Fq product and square is __forceinline__ on values,
+// and those two are calls on register values: coordinates and temporaries
+// are register arrays indexed by constants, with no pointer into the stack.
+// One copy of each one's unrolled code serves all its call sites,
 // which keeps the ladder's code small (inlined, it ran 2× slower on the
 // H100, likely from instruction-cache misses).  The constants are
 // __constant__, so the unrolled products take p's words as constant-bank
@@ -208,6 +217,53 @@ __device__ __noinline__ Fe fe_mul(const Fe a, const Fe b) {
   return fe_reduce_once(t);
 }
 
+// a·a·R⁻¹ mod p, a < p: fe_mul's rows with the square's 78 products in
+// place of 144.  Row i adds a_i·V_i, V_i = a_i·2^(32i) + 2·Σ_{j>i} a_j·2^(32j):
+// a_i² first, then a_i times the words of 2a above word i (d, 2a < 2^382
+// fits 12 words), the word just above i doubled without a_i's top bit —
+// and then reduces one word, as fe_mul does.  Bounds: every step
+// x = a_i·e + t + c < 2^64 as in fe_mul; V_i ≤ 2a < 2p, so a row adds
+// < 2^33·p and, with t < 4p before it, leaves t < (4p + 2^33·p + 2^32·p)/2^32
+// < 4p < 2^384: 12 words, the top word c + c2 without overflow (the
+// products' cross terms are doubled, so this needs p < 2^382 where fe_mul's
+// no-carry form needs p's top word below (2^32 − 1)/2 − 1).  The last t is
+// (a² + M·p)/R < 2p, and one correction leaves the residue fe_mul(a, a)
+// gives.  Not inlined, for the reason fe_mul is not.
+__device__ __noinline__ Fe fe_sqr(const Fe a) {
+  uint32_t d[NW];  // 2a
+  d[0] = a.w[0] << 1;
+#pragma unroll
+  for (int j = 1; j < NW; ++j) d[j] = (a.w[j] << 1) | (a.w[j - 1] >> 31);
+  Fe t;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) t.w[j] = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t ai = a.w[i];
+    uint64_t x = (uint64_t)ai * ai + t.w[i];
+    t.w[i] = (uint32_t)x;
+    uint64_t c = x >> 32;
+#pragma unroll
+    for (int j = i + 1; j < NW; ++j) {
+      const uint32_t e = j == i + 1 ? a.w[j] << 1 : d[j];
+      x = (uint64_t)ai * e + t.w[j] + c;
+      t.w[j] = (uint32_t)x;
+      c = x >> 32;
+    }
+    const uint32_t m = t.w[0] * PINV;
+    uint64_t y = (uint64_t)m * P_W[0] + t.w[0];
+    uint64_t c2 = y >> 32;
+#pragma unroll
+    for (int j = 1; j < NW; ++j) {
+      y = (uint64_t)m * P_W[j] + t.w[j] + c2;
+      t.w[j - 1] = (uint32_t)y;
+      c2 = y >> 32;
+    }
+    t.w[NW - 1] = (uint32_t)(c + c2);
+  }
+  return fe_reduce_once(t);
+}
+
 // Montgomery reduction of a 13-word value s < 2^416 with s < p·R:
 // s·R⁻¹ mod p.  After the first row the sum fits 12 words; the result
 // before the last correction is < s/R + p < 2p.
@@ -306,6 +362,7 @@ struct FqM {
   __device__ static __forceinline__ E add(const E& a, const E& b) { return fe_add(a, b); }
   __device__ static __forceinline__ E sub(const E& a, const E& b) { return fe_sub(a, b); }
   __device__ static __forceinline__ E mul(const E& a, const E& b) { return fe_mul(a, b); }
+  __device__ static __forceinline__ E sqr(const E& a) { return fe_sqr(a); }
   __device__ static __forceinline__ E mul_b3(const E& a) { return fe_mul12(a); }
   __device__ static __forceinline__ E zero() { return fe_zero(); }
   __device__ static __forceinline__ E one() { return fe_one(); }
@@ -376,19 +433,32 @@ __device__ __forceinline__ Pt<F> pt_identity() {
   return {F::zero(), F::one(), F::zero()};
 }
 
+// The first six products of the complete addition: a·b, or a·a by F::sqr
+// when the addition is a doubling (then b == a).
+template <class F, bool DBL>
+__device__ __forceinline__ typename F::E self_mul(const typename F::E& a,
+                                                  const typename F::E& b) {
+  if constexpr (DBL) {
+    return F::sqr(a);
+  } else {
+    return F::mul(a, b);
+  }
+}
+
 // Complete addition p + q (RCB 2015 Alg. 7, a = 0) in the operation order
-// of ops/ec.py PointKernel.add; valid for p == q and for identities.
-template <class F>
-__device__ __forceinline__ Pt<F> point_add(const Pt<F>& p, const Pt<F>& q) {
+// of ops/ec.py PointKernel.add; valid for p == q and for identities.  With
+// DBL (and q == p) its six products of an element by itself are squares.
+template <class F, bool DBL>
+__device__ __forceinline__ Pt<F> complete_add(const Pt<F>& p, const Pt<F>& q) {
   using E = typename F::E;
-  E t0 = F::mul(p.x, q.x);
-  E t1 = F::mul(p.y, q.y);
-  E t2 = F::mul(p.z, q.z);
-  E t3 = F::mul(F::add(p.x, p.y), F::add(q.x, q.y));
+  E t0 = self_mul<F, DBL>(p.x, q.x);
+  E t1 = self_mul<F, DBL>(p.y, q.y);
+  E t2 = self_mul<F, DBL>(p.z, q.z);
+  E t3 = self_mul<F, DBL>(F::add(p.x, p.y), F::add(q.x, q.y));
   t3 = F::sub(t3, F::add(t0, t1));
-  E t4 = F::mul(F::add(p.y, p.z), F::add(q.y, q.z));
+  E t4 = self_mul<F, DBL>(F::add(p.y, p.z), F::add(q.y, q.z));
   t4 = F::sub(t4, F::add(t1, t2));
-  E X3 = F::mul(F::add(p.x, p.z), F::add(q.x, q.z));
+  E X3 = self_mul<F, DBL>(F::add(p.x, p.z), F::add(q.x, q.z));
   E Y3 = F::sub(X3, F::add(t0, t2));
   X3 = F::add(t0, t0);
   t0 = F::add(X3, t0);
@@ -400,6 +470,17 @@ __device__ __forceinline__ Pt<F> point_add(const Pt<F>& p, const Pt<F>& q) {
   Y3 = F::add(F::mul(t1, Z3), F::mul(Y3, t0));
   Z3 = F::add(F::mul(Z3, t4), F::mul(t0, t3));
   return {X3, Y3, Z3};
+}
+
+template <class F>
+__device__ __forceinline__ Pt<F> point_add(const Pt<F>& p, const Pt<F>& q) {
+  return complete_add<F, false>(p, q);
+}
+
+// point_add(p, p), word for word, with six squares for six products.
+template <class F>
+__device__ __forceinline__ Pt<F> point_dbl(const Pt<F>& p) {
+  return complete_add<F, true>(p, p);
 }
 
 template <class F>
@@ -449,6 +530,20 @@ __device__ __forceinline__ Pt<F> windowed_ladder(const int32_t* src, const int32
     if (s < 14) table[s + 2] = acc;
   }
   if (steps == 14) acc = pt_identity<F>();  // nwin == 0: the empty sum
+  return acc;
+}
+
+// One thread's bit-serial ladder (pallas_ec._scalar_mul_kernel): from the
+// identity, msb first, acc = 2·acc (point_dbl), then acc = bit ? acc + P :
+// acc, where any nonzero bit of the row's nbits int32 `bits` selects.
+template <class F>
+__device__ __forceinline__ Pt<F> scan_ladder(const Pt<F>& base, const int32_t* bits, int nbits) {
+  Pt<F> acc = pt_identity<F>();
+  for (int i = 0; i < nbits; ++i) {
+    acc = point_dbl<F>(acc);
+    const Pt<F> with_p = point_add<F>(acc, base);
+    if (bits[i] != 0) acc = with_p;
+  }
   return acc;
 }
 

@@ -1,97 +1,125 @@
-// ring_permute.cu — one step of the mesh ring: a shard's buffer stored into
-// its right neighbour's buffer.
+// ring_permute.cu — one step of the mesh ring: every shard's buffer stored
+// into its right neighbour's buffer, one launch per sending card.
 //
 // Replaces the TPU kernel hbbft_tpu/ops/pallas_ec.py:_ring_permute_kernel
-// (`ring_permute`, pl.pallas_call at :934), where every shard starts a
+// (`ring_permute`, pl.pallas_call at :934), where, under shard_map, one
+// pallas_call per ring step has every shard start a
 // `make_async_remote_copy` of its whole HBM buffer into the right
-// neighbour's and waits on a send and a receive DMA semaphore.  Here the
-// wrapper (hbbft_tpu_torch/ops/cuda_ec.py:ring_permute) calls this entry
-// once per shard and round, on the SENDER's stream, with `dst` the buffer
-// on the RECEIVER's device; the semaphores become CUDA events around the
-// launch (the sender's stream waits until the receive buffer is free, the
-// receiver's stream waits for the copy before its add).
+// neighbour's and wait on a send and a receive DMA semaphore.  Here the
+// wrapper (hbbft_tpu_torch/ops/cuda_ec.py:ring_permute) groups a round's
+// copies by the sender's card and launches this kernel once a card, on
+// one stream of that card, with up to MAX_JOBS (src, dst, nbytes) copies
+// in a job table passed by value; `dst` may lie on another card (a peer
+// pointer: the stores cross NVLink).  The semaphores become CUDA events
+// around the launch.  Peer access is enabled once a card pair
+// (ring_enable_peer), not on each launch.
 //
-// Body: a grid-stride copy in 16-byte words, plus the bytes past the last
-// whole word; when either pointer is not 16-byte aligned every byte goes
-// the byte loop.  On one card the store lands in the same HBM; across
-// cards `dst` is a peer pointer and the stores cross NVLink, which the
-// entry enables (cudaDeviceEnablePeerAccess) the first time a pair meets.
+// Body: blockIdx.y picks the job, blockIdx.x · THREADS + threadIdx.x is a
+// 32-bit unit index within it, no grid-stride loop: the grid's x extent is
+// the largest job's unit count.  A job whose two pointers are 16-byte
+// aligned copies one int4 a unit for its whole words, and its last
+// nbytes % 16 bytes one byte a unit; a misaligned job copies every byte,
+// one a unit.  Units past a job's count return at once.
 //
 // What bounds it on the card: bytes — each byte read once and written once,
 // over HBM's 3.35 TB/s on one card or NVLink's 450 GB/s each way across two.
-// The mesh flush's message is [64, 3, 38] int32 = 29,184 bytes, ~17 ns of
-// HBM time, so the launch latency (microseconds) is what a call costs.
+// The mesh flush's message is [64, 3, 38] int32 = 29,184 bytes a shard,
+// ~17 ns of HBM time a shard, so the launch (~2 µs on the card's
+// timeline, more on the host) is what a round costs: one launch a card
+// where the shards on it launched one each.
 
 #include <cuda_runtime.h>
 
-#include <cstddef>
 #include <cstdint>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_BLOCKS = 264;  // two waves of 132 SMs is plenty for a copy
+constexpr int MAX_JOBS = 8;  // 8 × 24 B of table: far inside the 4 KB parameter limit
 
-__global__ void __launch_bounds__(THREADS)
-ring_permute_kernel(const unsigned char* __restrict__ src, unsigned char* __restrict__ dst,
-                    size_t nbytes, int vectorized) {
-  const size_t stride = (size_t)gridDim.x * THREADS;
-  const size_t tid = (size_t)blockIdx.x * THREADS + threadIdx.x;
-  size_t head = 0;
-  if (vectorized) {
-    const size_t nwords = nbytes / 16;
-    const int4* s = reinterpret_cast<const int4*>(src);
-    int4* d = reinterpret_cast<int4*>(dst);
-    for (size_t i = tid; i < nwords; i += stride) d[i] = s[i];
-    head = nwords * 16;
-  }
-  for (size_t i = head + tid; i < nbytes; i += stride) dst[i] = src[i];
-}
+struct Jobs {
+  const unsigned char* src[MAX_JOBS];
+  unsigned char* dst[MAX_JOBS];
+  uint32_t words[MAX_JOBS];  // whole 16-byte words copied as int4 (0 when misaligned)
+  uint32_t bytes[MAX_JOBS];  // bytes after them, copied one a unit
+};
 
-// Let `src_dev` store into `dst_dev`'s memory; 0 or a cudaError_t.
-int enable_peer(int src_dev, int dst_dev) {
-  int can = 0;
-  cudaError_t rc = cudaDeviceCanAccessPeer(&can, src_dev, dst_dev);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  if (!can) return static_cast<int>(cudaErrorPeerAccessUnsupported);
-  rc = cudaDeviceEnablePeerAccess(dst_dev, 0);
-  if (rc == cudaErrorPeerAccessAlreadyEnabled) {
-    cudaGetLastError();  // clear the error the runtime recorded for that call
-    return 0;
+__global__ void __launch_bounds__(THREADS) ring_permute_kernel(const Jobs jobs) {
+  const int j = blockIdx.y;
+  const uint32_t i = blockIdx.x * THREADS + threadIdx.x;
+  const uint32_t words = jobs.words[j];
+  if (i < words) {
+    reinterpret_cast<int4*>(jobs.dst[j])[i] = reinterpret_cast<const int4*>(jobs.src[j])[i];
   }
-  return static_cast<int>(rc);
+  if (i < jobs.bytes[j]) {
+    const size_t at = (size_t)words * 16 + i;
+    jobs.dst[j][at] = jobs.src[j][at];
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Copy `nbytes` from `src` (on device `src_dev`) into `dst` (on device
-// `dst_dev`), launched on `stream`, a stream of `src_dev`.  No sync.
-// Returns 0 on success, else a cudaError_t (peer access unsupported or
-// refused, or the launch's cudaGetLastError()).
-int ring_permute_launch(const void* src, void* dst, size_t nbytes, int src_dev, int dst_dev,
-                        void* stream) {
+int ring_permute_max_jobs() { return MAX_JOBS; }
+
+// Let device `src_dev` store into device `dst_dev`'s memory; 0 or a
+// cudaError_t (cudaErrorPeerAccessUnsupported where the pair has no path).
+// The caller makes it once a pair; it restores the current device.
+int ring_enable_peer(int src_dev, int dst_dev) {
+  int can = 0;
+  cudaError_t rc = cudaDeviceCanAccessPeer(&can, src_dev, dst_dev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (!can) return static_cast<int>(cudaErrorPeerAccessUnsupported);
   int prev = 0;
-  cudaError_t rc = cudaGetDevice(&prev);
+  rc = cudaGetDevice(&prev);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   rc = cudaSetDevice(src_dev);
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  int out = 0;
-  if (src_dev != dst_dev) out = enable_peer(src_dev, dst_dev);
-  if (out == 0 && nbytes > 0) {
-    const int vectorized = ((reinterpret_cast<uintptr_t>(src) |
-                             reinterpret_cast<uintptr_t>(dst)) % 16) == 0;
-    const size_t units = vectorized ? (nbytes + 15) / 16 : nbytes;
-    size_t blocks = (units + THREADS - 1) / THREADS;
-    if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-    ring_permute_kernel<<<static_cast<int>(blocks), THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const unsigned char*>(src), static_cast<unsigned char*>(dst), nbytes,
-        vectorized);
-    out = static_cast<int>(cudaGetLastError());
+  rc = cudaDeviceEnablePeerAccess(dst_dev, 0);
+  if (rc == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear the error the runtime recorded for that call
+    rc = cudaSuccess;
   }
   cudaSetDevice(prev);
+  return static_cast<int>(rc);
+}
+
+// One launch of `njobs` (1..MAX_JOBS) copies, job j storing nbytes[j] bytes
+// from src[j] into dst[j], on `stream`, a stream of device `dev` (every
+// src[j] lies on `dev`; a dst[j] on another card needs ring_enable_peer
+// first).  A job's unit count (its int4 words, or its bytes when a pointer
+// is not 16-byte aligned) must be below 2^32.  No sync.  Returns 0, or a
+// cudaError_t (a bad job count, the device switch, or the launch's
+// cudaGetLastError()).
+int ring_permute_launch(const uint64_t* src, const uint64_t* dst, const uint64_t* nbytes,
+                        int njobs, int dev, void* stream) {
+  if (njobs < 1 || njobs > MAX_JOBS) return static_cast<int>(cudaErrorInvalidValue);
+  Jobs jobs = {};
+  uint64_t units = 0;
+  for (int j = 0; j < njobs; ++j) {
+    const bool aligned = ((src[j] | dst[j]) % 16) == 0;
+    const uint64_t words = aligned ? nbytes[j] / 16 : 0;
+    const uint64_t bytes = nbytes[j] - words * 16;
+    if (words >= (1ull << 32) || bytes >= (1ull << 32)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    jobs.src[j] = reinterpret_cast<const unsigned char*>(src[j]);
+    jobs.dst[j] = reinterpret_cast<unsigned char*>(dst[j]);
+    jobs.words[j] = static_cast<uint32_t>(words);
+    jobs.bytes[j] = static_cast<uint32_t>(bytes);
+    if (words > units) units = words;
+    if (bytes > units) units = bytes;
+  }
+  if (units == 0) return 0;
+  int prev = 0;
+  cudaError_t rc = cudaGetDevice(&prev);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (prev != dev && (rc = cudaSetDevice(dev)) != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid(static_cast<unsigned>((units + THREADS - 1) / THREADS), njobs);
+  ring_permute_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(jobs);
+  const int out = static_cast<int>(cudaGetLastError());
+  if (prev != dev) cudaSetDevice(prev);
   return out;
 }
 

@@ -3,51 +3,48 @@
 // Replaces the TPU kernel hbbft_tpu/ops/pallas_ec.py:_scalar_mul_kernel
 // run through `_run_tiles`' pl.pallas_call (exec name scan_g1; entry
 // scalar_mul_pallas).  Per point k·P over BLS12-381 G1, msb first, for
-// every bit: acc = acc + acc, then acc = bit ? acc + P : acc, with both
-// sums computed and a select, as the reference's per-lane _select does
-// (pallas_ec.py:308-311).  Any nonzero bit selects acc + P.  The field
-// and the complete addition are bls_fq.cuh's, so the limbs equal the
-// plain PyTorch version's exactly.
+// every bit: acc = acc + acc, then acc = bit ? acc + P : acc (any nonzero
+// bit selects), as the reference's per-lane _select does
+// (pallas_ec.py:308-311) — bls_mont.cuh's scan_ladder.  The output is the
+// canonical residue of each coordinate, equal at canonical values to the
+// plain PyTorch version (ops/cuda_ec.py scan_plain); the limbs differ from
+// its lazily reduced ones.
 //
-// Design: one thread per point, 128-thread blocks; the point, the
-// accumulator and acc + P (3 × 456 B) are the thread's whole state.
+// Design: one thread per point over bls_mont.cuh's Montgomery field: the
+// point, the accumulator and acc + P are 3 × 12 words each, in registers,
+// with no table and no local-memory traffic.  The doubling is point_dbl
+// (the complete addition with p == q, its six self-products squared by
+// fe_sqr), equal to point_add(acc, acc) word for word; the add of P is
+// computed on every bit and kept where the bit is set.  At 255 registers
+// a thread (80 bytes spilled) an SM holds 256 threads, so 65,536 points
+// take two waves whatever the block; THREADS = 256 with no occupancy
+// floor, with fe_sqr a call, was the fastest build of
+// scripts/torch_win_sweep.py (capping registers for one wave spills
+// ~1 KB and loses; inlining fe_sqr loses).
 //
-// What bounds it on the card: int32 multiply-adds.  The kernel computes
-// 2·nbits complete adds a point, each 12 field products of 38×38 =
-// 1,444 multiply-adds (plus the lazy schedule's folds), but k·P needs
-// only bit_length − 1 doublings and popcount − 1 adds (~1.5·nbits for
-// random scalars): the add on a zero bit is computed and dropped, as the
-// TPU's lanes had to.  The bytes (points in and out, one int32 a bit)
-// are ~1.9 KB a point at 255 bits.  The layout
-// at the wrapper is the reference's [K, 3, 38] int32 points and
-// [K, nbits] int32 bits.
+// What bounds it on the card: 32×32→64-bit multiplies.  k·P needs
+// bit_length − 1 doublings (6 squares of 444 IMAD slots and 6 products of
+// 576) and popcount − 1 adds (12 products) a nonzero scalar
+// (chip_smoke.py's scan_bound); the kernel also doubles the identity in
+// leading zero bits and computes the add it drops on every zero bit.
+// The bytes (limbs in and out, one int32 a bit) are ~1.9 KB a point at
+// 255 bits.  The layout at the wrapper is the reference's [K, 3, 38]
+// int32 points (limbs in [−2^12, 2^12]) and [K, nbits] int32 bits.
 
-#include "bls_fq.cuh"
+#include "bls_mont.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(THREADS)
 scan_g1_kernel(const int32_t* __restrict__ pts, const int32_t* __restrict__ bits,
                int32_t* __restrict__ out, int K, int nbits) {
   const int k = blockIdx.x * THREADS + threadIdx.x;
   if (k >= K) return;
-  constexpr int P = 3 * L;
-  int32_t base[P], acc[P], with_p[P];
-  const int32_t* src = pts + (size_t)k * P;
-  for (int i = 0; i < P; ++i) base[i] = src[i];
-  set_identity<Fq>(acc);
-  const int32_t* b = bits + (size_t)k * nbits;
-  for (int i = 0; i < nbits; ++i) {
-    point_add<Fq>(acc, acc, acc);
-    point_add<Fq>(acc, base, with_p);
-    if (b[i] != 0) {
-      for (int j = 0; j < P; ++j) acc[j] = with_p[j];
-    }
-  }
-  int32_t* dst = out + (size_t)k * P;
-  for (int i = 0; i < P; ++i) dst[i] = acc[i];
+  constexpr int P = 3 * FqM::LIMBS;
+  const Pt<FqM> base = pt_load<FqM>(pts + (size_t)k * P);
+  pt_store<FqM>(scan_ladder<FqM>(base, bits + (size_t)k * nbits, nbits), out + (size_t)k * P);
 }
 
 }  // namespace

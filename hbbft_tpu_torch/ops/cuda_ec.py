@@ -1,9 +1,8 @@
 """The port's CUDA kernels and their plain twins.
 
 The port of ``hbbft_tpu/ops/pallas_ec.py``.  Its four Pallas kernels
-become CUDA C++ written by hand for Hopper; the two windowed scalar
-multiplications share the Montgomery field of ``csrc/bls_mont.cuh``,
-and ``scan_g1`` keeps the reference's limb field of ``csrc/bls_fq.cuh``:
+become CUDA C++ written by hand for Hopper; the three scalar
+multiplications share the Montgomery field of ``csrc/bls_mont.cuh``:
 
 - ``_make_windowed_kernel(g2=False)`` (exec name ``win_g1``) →
   ``csrc/win_g1.cu``, wrapper :func:`win_g1`, entry
@@ -15,20 +14,19 @@ and ``scan_g1`` keeps the reference's limb field of ``csrc/bls_fq.cuh``:
   ``scalar_mul_pallas``);
 - ``_ring_permute_kernel`` (``ring_permute``) → ``csrc/ring_permute.cu``,
   wrapper :func:`ring_permute` over the shards of a
-  ``parallel.mesh.Mesh`` (one launch per shard, :func:`ring_copy`).
+  ``parallel.mesh.Mesh`` (one launch per sending card and round, planned
+  by :func:`ring_plan`, through :func:`ring_copies`).
 
 Each wrapper, on a CUDA tensor, launches its kernel (or raises) — never
 a fallback; on a CPU tensor it runs the kernel's plain PyTorch version
 (:func:`windowed_plain`, :func:`windowed_g2_plain`, :func:`scan_plain`),
-the same schedule on ``ops/ec.py``'s ``PointKernel``.  ``scan_g1`` and
-its twin agree limb for limb (same field schedule, same operation
-order).  ``win_g1`` and ``win_g2`` compute the same field operations in
-the same order in Montgomery form and return each coordinate's
-canonical residue, so they agree with their twins at canonical values
-(``limbs.fq().canon``), coordinate by coordinate, and ``chip_smoke.py``
-compares them so, with tolerance 0.  ``LAUNCHES`` counts kernel
-launches (and nothing else), so a run can show that a path went through
-a kernel.  The layouts at these functions are the reference's:
+the same schedule on ``ops/ec.py``'s ``PointKernel``.  The kernels
+compute the same field operations in the same order in Montgomery form
+and return each coordinate's canonical residue, so they agree with their
+twins at canonical values (``limbs.fq().canon``), coordinate by
+coordinate, and ``chip_smoke.py`` compares them so, with tolerance 0.
+``LAUNCHES`` counts kernel launches (and nothing else), so a run can
+show that a path went through a kernel.  The layouts at these functions are the reference's:
 ``[K, 3, 38]`` (G1) or ``[K, 3, 2, 38]`` (G2) int32 points and
 ``[K, n]`` int32 digits or bits; the TPU's tile transpose has no
 counterpart (one thread per point reads its own row).
@@ -37,7 +35,8 @@ counterpart (one thread per point reads its own row).
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, List, Tuple
+import functools
+from typing import Callable, Dict, List, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -198,7 +197,8 @@ def win_g2(pts: torch.Tensor, digits: torch.Tensor) -> torch.Tensor:
 
 def scan_g1(pts: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """k·P per row on G1 by the bit-serial ladder: ``pts`` [K, 3, 38]
-    int32 × ``bits`` [K, nbits] int32 msb-first → [K, 3, 38]."""
+    int32 × ``bits`` [K, nbits] int32 msb-first → [K, 3, 38] (canonical
+    limbs from the kernel)."""
     return _run("scan_g1", scan_plain, pts, bits)
 
 
@@ -254,39 +254,97 @@ def ring_permute_plain(bufs: List[torch.Tensor], mesh) -> List[torch.Tensor]:
     return [bufs[(j - 1) % n].to(mesh.devices[j], copy=True) for j in range(n)]
 
 
+# copies in one launch's job table (ring_permute.cu's MAX_JOBS)
+RING_MAX_JOBS = 8
+# (sender card, receiver card) pairs with peer access enabled: the CUDA
+# context keeps it for the process, so each pair is enabled once
+_PEERS: Set[Tuple[int, int]] = set()
+
+
+@functools.lru_cache(maxsize=None)
 def _ring_lib() -> ctypes.CDLL:
+    """The ring library, its signatures set once."""
     lib = kernels.load("ring_permute")
-    p = ctypes.c_void_p
-    lib.ring_permute_launch.argtypes = [p, p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, p]
+    p, u64 = ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint64)
+    lib.ring_permute_launch.argtypes = [u64, u64, u64, ctypes.c_int, ctypes.c_int, p]
     lib.ring_permute_launch.restype = ctypes.c_int
+    lib.ring_enable_peer.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ring_enable_peer.restype = ctypes.c_int
     lib.ring_permute_error_string.argtypes = [ctypes.c_int]
     lib.ring_permute_error_string.restype = ctypes.c_char_p
+    lib.ring_permute_max_jobs.restype = ctypes.c_int
+    if lib.ring_permute_max_jobs() != RING_MAX_JOBS:
+        raise RuntimeError("ring_permute.cu's job table differs from RING_MAX_JOBS")
     return lib
 
 
-def ring_copy(src: torch.Tensor, dst: torch.Tensor, stream: torch.cuda.Stream) -> None:
-    """One launch of the ring kernel: store ``src``'s bytes into ``dst``
-    (same shape and dtype, contiguous, on any two cards) from
-    ``stream``, a stream of ``src``'s card.  No sync; the caller orders
-    the streams.  Raises if peer access or the launch fails."""
-    if src.device.type != "cuda" or dst.device.type != "cuda":
-        raise ValueError(f"ring_copy runs on cuda tensors, not {src.device} -> {dst.device}")
-    if src.shape != dst.shape or src.dtype != dst.dtype:
-        raise ValueError("ring_copy takes tensors of one shape and dtype")
-    if not (src.is_contiguous() and dst.is_contiguous()):
-        raise ValueError("ring_copy takes contiguous tensors")
-    if stream.device != src.device:
-        raise ValueError(f"the stream is on {stream.device}, the sender on {src.device}")
+def _ring_error(lib: ctypes.CDLL, what: str, rc: int) -> RuntimeError:
+    return RuntimeError(f"{what} failed: {lib.ring_permute_error_string(rc).decode()} ({rc})")
+
+
+def ring_plan(devices: Sequence[torch.device]) -> List[List[int]]:
+    """The launches of one ring round over shards on ``devices``: shard j
+    sends to shard (j+1) % n, and the senders on one card share launches
+    of at most ``RING_MAX_JOBS`` copies, in shard order (cards in order of
+    their first shard).  Returns each launch's sending shards; the first
+    one's stream runs the launch."""
+    by_card: Dict[torch.device, List[int]] = {}
+    for j, d in enumerate(devices):
+        by_card.setdefault(torch.device(d), []).append(j)
+    return [
+        shards[i : i + RING_MAX_JOBS]
+        for shards in by_card.values()
+        for i in range(0, len(shards), RING_MAX_JOBS)
+    ]
+
+
+def ring_copies(
+    srcs: Sequence[torch.Tensor], dsts: Sequence[torch.Tensor], stream: torch.cuda.Stream
+) -> None:
+    """Store each ``srcs[i]``'s bytes into ``dsts[i]`` (same shape and
+    dtype, contiguous; every src on ``stream``'s card, each dst on any
+    card) from ``stream``, in one launch of the ring kernel of at most
+    ``RING_MAX_JOBS`` copies (:func:`ring_plan` splits a round to fit).
+    No sync; the caller orders the streams.  Raises if peer access or the
+    launch fails."""
+    if len(srcs) != len(dsts):
+        raise ValueError(f"{len(srcs)} sources for {len(dsts)} destinations")
+    if len(srcs) > RING_MAX_JOBS:
+        raise ValueError(f"{len(srcs)} copies for a launch of at most {RING_MAX_JOBS}")
+    for src, dst in zip(srcs, dsts):
+        if not (src.is_cuda and dst.is_cuda):
+            raise ValueError(f"ring copies run on cuda tensors, not {src.device} -> {dst.device}")
+    sender = stream.device
+    for src, dst in zip(srcs, dsts):
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError("a ring copy takes tensors of one shape and dtype")
+        if not (src.is_contiguous() and dst.is_contiguous()):
+            raise ValueError("a ring copy takes contiguous tensors")
+        if src.device != sender:
+            raise ValueError(f"the stream is on {sender}, a sender on {src.device}")
     lib = _ring_lib()
-    nbytes = src.numel() * src.element_size()
-    rc = lib.ring_permute_launch(
-        src.data_ptr(), dst.data_ptr(), nbytes, src.device.index, dst.device.index,
-        stream.cuda_stream,
-    )
+    card = sender.index
+    for dst in dsts:
+        pair = (card, dst.device.index)
+        if pair[0] != pair[1] and pair not in _PEERS:
+            rc = lib.ring_enable_peer(*pair)
+            if rc != 0:
+                raise _ring_error(lib, f"peer access cuda:{pair[0]} -> cuda:{pair[1]}", rc)
+            _PEERS.add(pair)
+    jobs = [(s.data_ptr(), d.data_ptr(), s.nbytes) for s, d in zip(srcs, dsts) if s.nbytes]
+    if not jobs:
+        return
+    src_a, dst_a, nbytes_a = ((ctypes.c_uint64 * len(col))(*col) for col in zip(*jobs))
+    rc = lib.ring_permute_launch(src_a, dst_a, nbytes_a, len(jobs), card, stream.cuda_stream)
     if rc != 0:
-        msg = lib.ring_permute_error_string(rc).decode()
-        raise RuntimeError(f"ring_permute launch failed: {msg} ({rc})")
+        raise _ring_error(lib, "ring_permute launch", rc)
     LAUNCHES["ring_permute"] += 1
+
+
+def ring_copy(src: torch.Tensor, dst: torch.Tensor, stream: torch.cuda.Stream) -> None:
+    """One launch of the ring kernel with one job: :func:`ring_copies`
+    of ``src`` into ``dst``."""
+    ring_copies([src], [dst], stream)
 
 
 def ring_permute(bufs: List[torch.Tensor], mesh) -> List[torch.Tensor]:
@@ -296,38 +354,49 @@ def ring_permute(bufs: List[torch.Tensor], mesh) -> List[torch.Tensor]:
     the order of ``mesh.streams[j]``; the received buffers are ready in
     the same sense.
 
-    On CUDA every shard launches the kernel on its own stream into a
-    buffer on its right neighbour.  The two DMA semaphores of the TPU
-    kernel become events: the sender's stream waits until the receive
-    buffer is free on the receiver's stream, and the receiver's stream
-    waits for the copy before anything it queues next.  The receive
-    buffer is allocated on the receiver's stream and recorded on the
-    sender's, so the caching allocator does not hand it out again while
-    the copy is in flight.  CPU shards run :func:`ring_permute_plain`."""
+    On CUDA each card launches the kernel once for the shards it sends
+    from (:func:`ring_plan`), on its first sender's stream, into buffers
+    on the right neighbours.  The two DMA semaphores of the TPU kernel
+    become events: the launching stream waits until every sender's
+    buffer is written and every receive buffer is free on its shard's
+    stream, and every sender's and receiver's stream waits for the
+    launch before anything it queues next.  The receive buffers are
+    allocated on the receivers' streams and, with the sent buffers,
+    recorded on the launching stream, so the caching allocator does not
+    hand them out again while the copy is in flight.  CPU shards run
+    :func:`ring_permute_plain`."""
     _check_ring(bufs, mesh)
     n = len(bufs)
     if all(b.device.type == "cpu" for b in bufs):
         return ring_permute_plain(bufs, mesh)
     if not all(b.device.type == "cuda" for b in bufs):
         raise ValueError("ring_permute runs on cuda or cpu shards")
-    recv, free = [], []
+    sent, recv, ready = [], [], []
     for j in range(n):
         with mesh.on(j):
+            sent.append(bufs[j].contiguous())
             msg = bufs[(j - 1) % n]
             recv.append(torch.empty(msg.shape, dtype=msg.dtype, device=mesh.devices[j]))
             ev = torch.cuda.Event()
-            ev.record(mesh.streams[j])
-            free.append(ev)
-    for j in range(n):
-        r = (j + 1) % n
-        s_src = mesh.streams[j]
-        with mesh.on(j):
-            src = bufs[j].contiguous()
-        s_src.wait_event(free[r])
-        src.record_stream(s_src)
-        recv[r].record_stream(s_src)
-        ring_copy(src, recv[r], s_src)
+            ev.record(mesh.streams[j])  # shard j's buffer written, its receive buffer free
+            ready.append(ev)
+    finished = []
+    for senders in ring_plan(mesh.devices):
+        lead = senders[0]
+        touched = sorted((set(senders) | {(j + 1) % n for j in senders}) - {lead})
+        stream = mesh.streams[lead]
+        for k in touched:
+            stream.wait_event(ready[k])
+        srcs = [sent[j] for j in senders]
+        dsts = [recv[(j + 1) % n] for j in senders]
+        for t in srcs + dsts:
+            t.record_stream(stream)
+        ring_copies(srcs, dsts, stream)
         done = torch.cuda.Event()
-        done.record(s_src)
-        mesh.streams[r].wait_event(done)
+        done.record(stream)
+        finished.append((done, touched))
+    # only now, so that no card's launch waits for another card's
+    for done, touched in finished:
+        for k in touched:
+            mesh.streams[k].wait_event(done)
     return recv

@@ -1,11 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one CUDA C++ source under ``hbbft_tpu_torch/csrc/`` with
-a plain C entry point.  The windowed scalar multiplications
-(``win_g1.cu``, ``win_g2.cu``) share the Montgomery field and ladder of
-``csrc/bls_mont.cuh``; ``scan_g1.cu`` keeps the reference's 38-limb
-field of ``csrc/bls_fq.cuh``; ``ring_permute.cu`` is a copy and includes
-neither.  A kernel is compiled on first use by ``nvcc`` for
+a plain C entry point.  The scalar multiplications (``win_g1.cu``,
+``win_g2.cu``, ``scan_g1.cu``) share the Montgomery field and ladders of
+``csrc/bls_mont.cuh``; ``ring_permute.cu`` is a copy and includes no
+field code.  A kernel is compiled on first use by ``nvcc`` for
 Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a shared
 library under ``build/hbbft_tpu_torch/`` at the repo root, and loaded
 with ``ctypes``.  The library's file name carries a hash of the source,

@@ -1,10 +1,9 @@
 """Fixed-prime big-integer limb arithmetic on torch tensors.
 
 The port of ``hbbft_tpu/ops/limbs.py``.  Same representation, same
-schedule, so the limbs are bit-identical to the JAX reference (and to
-the CUDA field of ``csrc/bls_fq.cuh``, which follows this file line for
-line; the windowed kernels' Montgomery field, ``csrc/bls_mont.cuh``,
-takes these limbs in and writes canonical ones out):
+schedule, so the limbs are bit-identical to the JAX reference (the
+CUDA kernels' Montgomery field, ``csrc/bls_mont.cuh``, takes these limbs
+in and writes canonical ones out):
 
 - an element is ``L = 38`` limbs of ``LIMB_BITS = 11`` bits, little-
   endian, in ``int32`` — 418 bits of capacity, 37 bits of headroom

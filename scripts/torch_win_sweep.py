@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Launch-shape sweep of the windowed kernels ``win_g1`` and ``win_g2``.
+"""Launch-shape and build-variant sweep of the scalar-mul kernels
+``win_g1``, ``win_g2`` and ``scan_g1``.
 
 The shipped sources are the default.  Every other variant is a copy of
 ``hbbft_tpu_torch/csrc`` under ``build/hbbft_tpu_torch/sweep/<variant>``
@@ -15,7 +16,10 @@ loaded by ``ctypes``; the patches live in this script only:
   (``mad.lo.cc`` / ``madc.hi.cc``, two instructions a partial product)
   instead of C ``uint64_t`` arithmetic;
 - ``one-lane`` (``win_g2``): one thread a point, with a one-thread Fq2
-  (Karatsuba, 3 Fq products an Fq2 product) in place of the lane pair.
+  (Karatsuba, 3 Fq products an Fq2 product) in place of the lane pair;
+- ``no-sqr`` (``scan_g1``): the ladder doubles by ``point_add(acc, acc)``
+  (12 Fq products) in place of ``point_dbl`` (6 of them ``fe_sqr``);
+- ``sqr-inlined`` (``scan_g1``): the Fq square ``__forceinline__``.
 
 All builds run at once (one ``nvcc`` each); a variant that fails to
 build is reported and skipped.  For each the script prints ptxas's
@@ -28,7 +32,9 @@ seconds and the kernel's ms at the path's shape (CUDA events, median of
 - ``win_g2``: 236,672 points × 64 windows (the N = 128 DKG's fused
   MSM).  The G2 points are 4,096 distinct multiples of the generator
   repeated to that count: the ladder's work does not depend on the
-  point, only on the shape.
+  point, only on the shape;
+- ``scan_g1``: 65,536 points × 255 bits of random scalars below r
+  (chip_smoke.py's timed shape).
 
 Every variant's output must equal the default build's exactly (both
 are canonical limbs), and the default's must equal the plain version's
@@ -55,11 +61,12 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-SHAPES = {"win_g1": (1 << 16, 24), "win_g2": (128 * 43 * 43, 64)}
+SHAPES = {"win_g1": (1 << 16, 24), "win_g2": (128 * 43 * 43, 64), "scan_g1": (1 << 16, 255)}
 G2_DISTINCT = 4096
 CHECK_ROWS = 512
 
 FE_MUL_HEAD = "__device__ __noinline__ Fe fe_mul(const Fe a, const Fe b) {"
+FE_SQR_HEAD = "__device__ __noinline__ Fe fe_sqr(const Fe a) {"
 
 # the Fq product with PTX carry chains: row i adds a·b[i] into t and a
 # 13th word A (lo halves, then hi halves one word up), then m·p with
@@ -184,8 +191,11 @@ def _sub(text: str, old: str, new: str) -> str:
 
 def shape(threads: int, floor: int):
     def patch(files, name):
-        src = _sub(files[f"{name}.cu"], "constexpr int THREADS = 128;",
-                   f"constexpr int THREADS = {threads};")
+        src = files[f"{name}.cu"]
+        shipped = re.search(r"constexpr int THREADS = \d+;", src)
+        if shipped is None:
+            raise ValueError(f"patch anchor not found: THREADS in {name}.cu")
+        src = _sub(src, shipped.group(0), f"constexpr int THREADS = {threads};")
         files[f"{name}.cu"] = _sub(src, "__launch_bounds__(THREADS)",
                                    f"__launch_bounds__(THREADS, {floor})")
     return f"threads={threads},floor={floor}", patch
@@ -210,6 +220,16 @@ def one_lane(files, name):
                                  FQ2M.strip("\n") + "\n\ntemplate <class F>\nstruct Pt {")
     src = _sub(files["win_g2.cu"], "constexpr int LANES = 2;", "constexpr int LANES = 1;")
     files["win_g2.cu"] = _sub(src, "Fq2Lane", "Fq2M")
+
+
+def no_sqr(files, name):
+    files["bls_mont.cuh"] = _sub(files["bls_mont.cuh"], "acc = point_dbl<F>(acc);",
+                                 "acc = point_add<F>(acc, acc);")
+
+
+def sqr_inlined(files, name):
+    files["bls_mont.cuh"] = _sub(files["bls_mont.cuh"], FE_SQR_HEAD,
+                                 FE_SQR_HEAD.replace("__noinline__", "__forceinline__"))
 
 
 def variant(*parts):
@@ -237,6 +257,12 @@ VARIANTS = {
     "win_g2": COMMON + [
         variant(one_lane), variant(one_lane, shape(256, 1)), variant(one_lane, shape(128, 3)),
         variant(one_lane, shape(128, 4)), variant(one_lane, inlined), variant(one_lane, ptx),
+    ],
+    # shipped: 256 threads; 256 × 2 is one wave of 65,536 points, registers
+    # capped at 128
+    "scan_g1": [
+        variant(no_sqr), variant(sqr_inlined), variant(shape(128, 1)),
+        variant(shape(256, 2)), variant(no_sqr, shape(128, 1)),
     ],
 }
 
@@ -283,7 +309,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--kernel", choices=sorted(SHAPES), action="append",
-                    help="sweep only this kernel (repeatable; default: both)")
+                    help="sweep only this kernel (repeatable; default: all)")
     args = ap.parse_args()
     names = args.kernel or list(SHAPES)
 
@@ -318,26 +344,31 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rng = random.Random(0x5EE9)
-    k1, nwin1 = SHAPES["win_g1"]
-    wires = NT.g1_mul_many(NT.g1_wire(G1_GEN), [rng.randrange(1, F.R) for _ in range(k1)])
-    arr = np.frombuffer(b"".join(wires), dtype=np.uint8).reshape(k1, 96).copy()
-    g1_pts = PM._wire_points_g1(torch.from_numpy(arr).to(dev))
-    sc = PM.scalar_bytes_batch([rng.randrange(1, 1 << 96) for _ in range(k1)], 12)
-    g1_dig = PM._scalar_digits(torch.from_numpy(sc).to(dev))
-    assert g1_dig.shape[1] == nwin1
 
-    k2, nwin2 = SHAPES["win_g2"]
-    ks = PM.scalar_bytes_batch([rng.randrange(1, F.R) for _ in range(G2_DISTINCT)], 32)
-    raw = NT.g2_mul_many_raw(NT.g2_wire(G2_GEN), ks).reshape(G2_DISTINCT, 192)
-    reps = -(-k2 // G2_DISTINCT)
-    raw = np.tile(raw, (reps, 1))[:k2].copy()
-    g2_pts = PM._wire_points_g2(torch.from_numpy(raw).to(dev))
-    sc = PM.scalar_bytes_batch([rng.randrange(1, F.R) for _ in range(k2)], 32)
-    g2_dig = PM._scalar_digits(torch.from_numpy(sc).to(dev))
-    assert g2_dig.shape[1] == nwin2
+    def g1_points(k):
+        wires = NT.g1_mul_many(NT.g1_wire(G1_GEN), [rng.randrange(1, F.R) for _ in range(k)])
+        arr = np.frombuffer(b"".join(wires), dtype=np.uint8).reshape(k, 96).copy()
+        return PM._wire_points_g1(torch.from_numpy(arr).to(dev))
 
-    inputs = {"win_g1": (g1_pts, g1_dig), "win_g2": (g2_pts, g2_dig)}
-    plains = {"win_g1": cuda_ec.windowed_plain, "win_g2": cuda_ec.windowed_g2_plain}
+    def win_g1_inputs(k, nwin):
+        sc = PM.scalar_bytes_batch([rng.randrange(1, 1 << 96) for _ in range(k)], 12)
+        return g1_points(k), PM._scalar_digits(torch.from_numpy(sc).to(dev))
+
+    def win_g2_inputs(k, nwin):
+        ks = PM.scalar_bytes_batch([rng.randrange(1, F.R) for _ in range(G2_DISTINCT)], 32)
+        raw = NT.g2_mul_many_raw(NT.g2_wire(G2_GEN), ks).reshape(G2_DISTINCT, 192)
+        raw = np.tile(raw, (-(-k // G2_DISTINCT), 1))[:k].copy()
+        sc = PM.scalar_bytes_batch([rng.randrange(1, F.R) for _ in range(k)], 32)
+        return (PM._wire_points_g2(torch.from_numpy(raw).to(dev)),
+                PM._scalar_digits(torch.from_numpy(sc).to(dev)))
+
+    def scan_g1_inputs(k, nbits):
+        bits = LB.scalars_to_bits([rng.randrange(0, F.R) for _ in range(k)], nbits)
+        return g1_points(k), torch.from_numpy(bits).to(dev)
+
+    make_inputs = {"win_g1": win_g1_inputs, "win_g2": win_g2_inputs, "scan_g1": scan_g1_inputs}
+    plains = {"win_g1": cuda_ec.windowed_plain, "win_g2": cuda_ec.windowed_g2_plain,
+              "scan_g1": cuda_ec.scan_plain}
     f = LB.fq()
 
     def launcher(name, so):
@@ -371,7 +402,8 @@ def main() -> int:
         return out, times
 
     for name in names:
-        pts, dig = inputs[name]
+        pts, dig = make_inputs[name](*SHAPES[name])
+        assert tuple(dig.shape) == SHAPES[name]
         ref = launcher(name, built[(name, "default")][0])(pts, dig)
         plain = plains[name](pts[:CHECK_ROWS], dig[:CHECK_ROWS])
         torch.cuda.synchronize()
@@ -389,7 +421,7 @@ def main() -> int:
                 "kernel": name,
                 "variant": label,
                 "K": pts.shape[0],
-                "nwin": dig.shape[1],
+                "n": dig.shape[1],  # windows, or bits for scan_g1
                 "ms_median": statistics.median(times),
                 "ms": times,
                 "build_s": seconds,

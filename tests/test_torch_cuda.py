@@ -5,18 +5,17 @@ a host without a card they skip.  They import only torch and the port,
 so they run on the GPU machine as they are:
 ``python -m pytest tests/test_torch_cuda.py -q``.
 
-``win_g1`` and ``win_g2`` must equal their plain PyTorch versions at
-canonical values (``limbs.fq().canon``, tolerance 0) and return
-canonical limbs, also on identity rows, zero scalars, digits outside
-0..15 and points given in non-canonical limbs; ``scan_g1`` must equal
-its plain version limb for limb.  All three must equal native
-``hb_g1_mul`` / ``hb_g2_mul`` canonically and count exactly one launch
-per call; a small DKG with
-its fused MSM forced onto the card must give the CPU run's keys.
-``ring_permute`` must equal its plain version byte for byte on a
-4-shard mesh, whichever shard's stream runs late, and count one launch
-a shard; a small product flush over that mesh must give the host's
-point.
+``win_g1``, ``win_g2`` and ``scan_g1`` must equal their plain PyTorch
+versions at canonical values (``limbs.fq().canon``, tolerance 0) and
+return canonical limbs, also on identity rows, zero scalars, digits
+outside 0..15 and points given in non-canonical limbs.  All three must
+equal native ``hb_g1_mul`` / ``hb_g2_mul`` canonically and count
+exactly one launch per call; a small DKG with its fused MSM forced onto
+the card must give the CPU run's keys.  ``ring_permute`` must equal its
+plain version byte for byte on a 4-shard mesh, whichever shard's stream
+runs late, and count one launch per sending card and round; the ring's
+copies must also move misaligned and odd-sized buffers in one launch; a
+small product flush over that mesh must give the host's point.
 """
 
 import random
@@ -187,15 +186,16 @@ def test_scan_g1_kernel_matches_plain_and_native(dev):
     scalars = [rng.randrange(0, F.R) for _ in range(k)]
     scalars[3] = 0
     bits = torch.from_numpy(LB.scalars_to_bits(scalars, 255)).to(dev)
-    before = cuda_ec.LAUNCHES["scan_g1"]
-    got = cuda_ec.scan_g1(pts, bits)
-    assert cuda_ec.LAUNCHES["scan_g1"] == before + 1
-    plain = cuda_ec.scan_plain(pts, bits)
-    torch.cuda.synchronize()
-    assert torch.equal(got, plain)
-    host = got.cpu().numpy()
-    for i in range(k):
-        assert NT.g1_wire(ec.g1_from_limbs(host[i])) == NT.g1_mul(wires[i], scalars[i])
+    # the same points again in non-canonical limbs (negative ones included)
+    odd = torch.from_numpy(_non_canonical(pts.cpu().numpy(), rng)).to(dev)
+    for what, p in (("canonical", pts), ("non-canonical", odd)):
+        before = cuda_ec.LAUNCHES["scan_g1"]
+        got = cuda_ec.scan_g1(p, bits)
+        assert cuda_ec.LAUNCHES["scan_g1"] == before + 1
+        _assert_canonical_equal(got, cuda_ec.scan_plain(p, bits))
+        host = got.cpu().numpy()
+        for i in range(k):
+            assert NT.g1_wire(ec.g1_from_limbs(host[i])) == NT.g1_mul(wires[i], scalars[i]), what
 
 
 def test_dkg_on_the_card_matches_cpu(dev):
@@ -237,11 +237,37 @@ def test_ring_permute_kernel_matches_plain(dev, rows):
                 torch.cuda._sleep(2_000_000)
         before = cuda_ec.LAUNCHES["ring_permute"]
         got = cuda_ec.ring_permute(bufs, mesh)
-        assert cuda_ec.LAUNCHES["ring_permute"] == before + 4
+        # one launch per sending card (1 on one card, 4 on four)
+        assert cuda_ec.LAUNCHES["ring_permute"] == before + len(set(mesh.devices))
         torch.cuda.synchronize()
         for j in range(4):
             assert got[j].device == mesh.devices[j]
             assert torch.equal(got[j].cpu(), want[j]), (late, j)
+
+
+def test_ring_copies_misaligned_and_odd_sizes_in_one_launch(dev):
+    """One launch of three jobs: a misaligned pair (every byte on the
+    byte path), an aligned job of 29 bytes (one int4 word and 13 bytes)
+    and the flush's 29,184-byte message; the bytes around each
+    destination stay as they were."""
+    from hbbft_tpu_torch.ops import cuda_ec
+
+    gen = np.random.default_rng(0xA116)
+    src = torch.from_numpy(gen.integers(0, 256, size=40_000, dtype=np.uint8)).to(dev)
+    dst = torch.zeros(40_000, dtype=torch.uint8, device=dev)
+    jobs = [(3, 5, 517), (0, 1024, 29), (1536, 2048, 29_184)]  # (src at, dst at, bytes)
+    before = cuda_ec.LAUNCHES["ring_permute"]
+    cuda_ec.ring_copies(
+        [src[a : a + n] for a, _, n in jobs],
+        [dst[b : b + n] for _, b, n in jobs],
+        torch.cuda.current_stream(dev),
+    )
+    assert cuda_ec.LAUNCHES["ring_permute"] == before + 1
+    want = torch.zeros_like(dst)
+    for a, b, n in jobs:
+        want[b : b + n] = src[a : a + n]
+    torch.cuda.synchronize()
+    assert torch.equal(dst, want)
 
 
 def test_mesh_product_flush_on_the_card(dev):
@@ -262,5 +288,6 @@ def test_mesh_product_flush_on_the_card(dev):
     before = dict(cuda_ec.LAUNCHES)
     got = be.g1_msm_product_async(be.g1_ship(pts, sizes), s, t, sizes)()
     assert cuda_ec.LAUNCHES["win_g1"] == before["win_g1"] + 4
-    assert cuda_ec.LAUNCHES["ring_permute"] == before["ring_permute"] + 12
+    # 3 rounds, one launch per sending card each
+    assert cuda_ec.LAUNCHES["ring_permute"] == before["ring_permute"] + 3 * len(set(be.mesh.devices))
     assert got == CpuBackend().g1_msm_product_async(pts, s, t, sizes)()

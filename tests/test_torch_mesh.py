@@ -78,6 +78,48 @@ def test_ring_permute_plain_matches_ppermute(rows):
     )
 
 
+@pytest.mark.parametrize(
+    "cards,want",
+    [
+        ([0, 0, 0, 0], [[0, 1, 2, 3]]),  # one card: one launch a round
+        ([0, 1, 2, 3], [[0], [1], [2], [3]]),  # four cards: one launch each
+        ([0, 1, 0, 1], [[0, 2], [1, 3]]),  # mixed: each card its own senders
+        ([1, 1, 0, 0, 1], [[0, 1, 4], [2, 3]]),  # cards in order of their first shard
+        ([0] * 10, [list(range(8)), [8, 9]]),  # past the job table: split
+        ([0], [[0]]),
+    ],
+    ids=["one-card", "four-cards", "interleaved", "first-shard-order", "split", "one-shard"],
+)
+def test_ring_plan_groups_copies_by_sending_card(cards, want):
+    """The batched ring's job plan on a mesh of fake cards (no CUDA
+    needed): one launch per sending card per round, each with at most
+    RING_MAX_JOBS copies, every shard sending exactly once."""
+    devices = [torch.device("cuda", c) for c in cards]
+    plan = cuda_ec.ring_plan(devices)
+    assert plan == want
+    assert sorted(j for launch in plan for j in launch) == list(range(len(cards)))
+    for launch in plan:
+        assert len(launch) <= cuda_ec.RING_MAX_JOBS
+        assert len({devices[j] for j in launch}) == 1
+
+
+def test_ring_copies_take_only_cuda_tensors():
+    """The ring's copies never fall back: CPU tensors are refused, as is a
+    job list that does not pair up."""
+    with pytest.raises(ValueError, match="cuda"):
+        cuda_ec.ring_copy(torch.zeros(3), torch.zeros(3), None)
+    with pytest.raises(ValueError, match="destinations"):
+        cuda_ec.ring_copies([torch.zeros(3)], [], None)
+
+
+def test_ring_copies_take_at_most_one_job_table():
+    """One call is one launch: more copies than the kernel's job table
+    holds are refused, not split (ring_plan splits a round)."""
+    n = cuda_ec.RING_MAX_JOBS + 1
+    with pytest.raises(ValueError, match="at most"):
+        cuda_ec.ring_copies([torch.zeros(3)] * n, [torch.zeros(3)] * n, None)
+
+
 def test_ring_permute_rejects_a_buffer_off_its_shard():
     mesh = PM.Mesh([torch.device("cpu")] * 2)
     with pytest.raises(ValueError, match="2 shards"):

@@ -1,4 +1,4 @@
-"""The Montgomery field of the windowed kernels (``csrc/bls_mont.cuh``).
+"""The Montgomery field of the scalar-mul kernels (``csrc/bls_mont.cuh``).
 
 The kernels run only on the card, so their arithmetic is held here in
 three ways, each in seconds on the CPU:
@@ -14,10 +14,11 @@ three ways, each in seconds on the CPU:
    limb in [−2^12, 2^12], negative values included);
 3. the header itself, compiled for the host by the C++ compiler (the
    CUDA qualifiers defined away, and ``win_g2``'s lane pair run as two
-   coroutines that meet at every shuffle), running the ladder of
-   ``win_g1`` and ``win_g2`` against the plain PyTorch versions at
-   canonical values, and its field routines against the model word for
-   word.
+   coroutines that meet at every shuffle), running the ladders of
+   ``win_g1``, ``win_g2`` and ``scan_g1`` against the plain PyTorch
+   versions at canonical values, its field routines against the model
+   word for word, and its square and doubling against its product and
+   complete addition.
 """
 
 import ctypes
@@ -96,11 +97,13 @@ def test_header_constants_match_field():
 
 
 def test_windowed_sources_include_the_header():
-    for name in ("win_g1", "win_g2"):
+    """All three scalar-mul kernels include the Montgomery header, the
+    only field header: the limb field's bls_fq.cuh is gone."""
+    for name in ("win_g1", "win_g2", "scan_g1"):
         src = kernels.SOURCES[name].read_text()
         assert '#include "bls_mont.cuh"' in src and "bls_fq.cuh" not in src, name
-    assert '#include "bls_fq.cuh"' in kernels.SOURCES["scan_g1"].read_text()
-    assert "windowed_ladder" not in (kernels.CSRC / "bls_fq.cuh").read_text()
+    assert sorted(p.name for p in kernels.CSRC.glob("*.cuh")) == ["bls_mont.cuh"]
+    assert "scan_ladder" in kernels.SOURCES["scan_g1"].read_text()
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +174,38 @@ def m_mul(a, b):
             t[j - 1] = y & MASK32
         assert c + c2 < W  # the top word takes the two carries
         t[NW - 1] = c + c2
+    return m_reduce_once(t)
+
+
+def m_sqr(a):
+    """fe_sqr: fe_mul's rows, row i adding a_i² and a_i times the words of
+    2a above word i (the word just above i doubled without a_i's top
+    bit), then one word of reduction; t stays below 4p."""
+    assert _int(a) < P
+    d = [((a[j] << 1) | (a[j - 1] >> 31 if j else 0)) & MASK32 for j in range(NW)]
+    assert _int(d) == 2 * _int(a)  # 2a fits 12 words
+    t = [0] * NW
+    for i in range(NW):
+        x = _u64(a[i] * a[i] + t[i])
+        t[i] = x & MASK32
+        c = x >> 32
+        for j in range(i + 1, NW):
+            e = (a[j] << 1) & MASK32 if j == i + 1 else d[j]
+            x = _u64(a[i] * e + t[j] + c)
+            t[j] = x & MASK32
+            c = x >> 32
+        m = (t[0] * PINV) & MASK32
+        y = _u64(m * P_W[0] + t[0])
+        assert y & MASK32 == 0
+        c2 = y >> 32
+        for j in range(1, NW):
+            y = _u64(m * P_W[j] + t[j] + c2)
+            t[j - 1] = y & MASK32
+            c2 = y >> 32
+        assert c + c2 < W  # the top word takes the two carries
+        t[NW - 1] = c + c2
+        assert _int(t) < 4 * P
+    assert _int(t) < 2 * P
     return m_reduce_once(t)
 
 
@@ -247,6 +282,29 @@ def test_model_mul_add_sub(a, b):
     assert _int(m_add(ma, mb)) == (a + b) % P * R % P
     assert _int(m_sub(ma, mb)) == (a - b) % P * R % P
     assert val(m_mul12(ma)) == 12 * a % P
+
+
+# the squaring's edges beside EDGES: top words at their extremes
+SQR_EDGES = EDGES + [
+    (1 << 352) - 1,  # top word 0, every other word all ones
+    (P_W[-1] << 352) - 1,  # top word one below p's, the rest all ones
+    P - (1 << 352),  # p's top word minus one, p's other words
+    (P_W[-1] << 352) + 1,  # p's top word, all but the lowest bit of the rest 0
+]
+
+
+@settings(max_examples=150, deadline=None)
+@given(field)
+def test_model_sqr_is_the_product_by_itself(a):
+    assert m_sqr(_words(a)) == m_mul(_words(a), _words(a))
+    assert m_sqr(mont(a)) == mont(a * a % P)
+
+
+@pytest.mark.parametrize("a", SQR_EDGES)
+def test_model_sqr_edges(a):
+    assert a < P
+    assert m_sqr(_words(a)) == m_mul(_words(a), _words(a))
+    assert _int(m_sqr(_words(a))) == a * a * pow(R, -1, P) % P
 
 
 @pytest.mark.parametrize("a", EDGES)
@@ -356,6 +414,7 @@ extern "C" {
 static Fe in(const uint32_t* a) { Fe r; for (int i = 0; i < NW; ++i) r.w[i] = a[i]; return r; }
 static void out(const Fe& r, uint32_t* o) { for (int i = 0; i < NW; ++i) o[i] = r.w[i]; }
 void h_mul(const uint32_t* a, const uint32_t* b, uint32_t* o) { out(fe_mul(in(a), in(b)), o); }
+void h_sqr(const uint32_t* a, uint32_t* o) { out(fe_sqr(in(a)), o); }
 void h_add(const uint32_t* a, const uint32_t* b, uint32_t* o) { out(fe_add(in(a), in(b)), o); }
 void h_sub(const uint32_t* a, const uint32_t* b, uint32_t* o) { out(fe_sub(in(a), in(b)), o); }
 void h_from_limbs(const int32_t* l, uint32_t* o) { out(fe_from_limbs(l), o); }
@@ -385,6 +444,21 @@ void h_ladder_g2(const int32_t* pts, const int32_t* dig, int32_t* o, int K, int 
   }
 }
 int h_lane_shuffles() { return (int)(shuffles[0] == shuffles[1] ? shuffles[0] : -1); }
+// points as 3 × 12 Montgomery words
+static Pt<FqM> pt_in(const uint32_t* a) { return {in(a), in(a + NW), in(a + 2 * NW)}; }
+static void pt_out(const Pt<FqM>& p, uint32_t* o) {
+  out(p.x, o); out(p.y, o + NW); out(p.z, o + 2 * NW);
+}
+void h_point_add(const uint32_t* p, const uint32_t* q, uint32_t* o) {
+  pt_out(point_add<FqM>(pt_in(p), pt_in(q)), o);
+}
+void h_point_dbl(const uint32_t* p, uint32_t* o) { pt_out(point_dbl<FqM>(pt_in(p)), o); }
+// scan_g1's ladder, one row after another
+void h_scan_g1(const int32_t* pts, const int32_t* bits, int32_t* o, int K, int nbits) {
+  for (int k = 0; k < K; ++k)
+    pt_store<FqM>(scan_ladder<FqM>(pt_load<FqM>(pts + k * 3 * L), bits + k * nbits, nbits),
+                  o + k * 3 * L);
+}
 }
 """
 
@@ -407,6 +481,10 @@ def host_lib(tmp_path_factory):
     p = ctypes.c_void_p
     for fn in ("h_mul", "h_add", "h_sub"):
         getattr(lib, fn).argtypes = [p, p, p]
+    lib.h_sqr.argtypes = [p, p]
+    lib.h_point_add.argtypes = [p, p, p]
+    lib.h_point_dbl.argtypes = [p, p]
+    lib.h_scan_g1.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int]
     lib.h_from_limbs.argtypes = [p, p]
     lib.h_to_limbs.argtypes = [p, p]
     for fn in ("h_ladder_g1", "h_ladder_g2"):
@@ -497,3 +575,73 @@ def test_host_ladder_with_no_windows_is_the_identity(host_lib, group):
         # the lanes met at every shuffle: 14 table adds of 12 products
         # (2 exchanges of 12 words each) and 2 mul_b3 (one exchange each)
         assert host_lib.h_lane_shuffles() == 14 * (12 * 2 + 2) * 12
+
+
+@settings(max_examples=100, deadline=None)
+@given(field)
+def test_host_sqr_matches_mul_and_model(host_lib, a):
+    wa = np.array(_words(a), dtype=np.uint32)
+    got = list(_call(host_lib.h_sqr, wa))
+    assert got == list(_call(host_lib.h_mul, wa, wa))
+    assert got == m_sqr(_words(a))
+
+
+@pytest.mark.parametrize("a", SQR_EDGES)
+def test_host_sqr_edges(host_lib, a):
+    wa = np.array(_words(a), dtype=np.uint32)
+    assert list(_call(host_lib.h_sqr, wa)) == list(_call(host_lib.h_mul, wa, wa))
+
+
+def _mont_point(x: int, y: int, z: int) -> np.ndarray:
+    return np.array(mont(x) + mont(y) + mont(z), dtype=np.uint32)
+
+
+def test_host_point_dbl_is_point_add_to_itself(host_lib):
+    """point_dbl(p) equals point_add(p, p) word for word: on curve points,
+    the identity, a point with Z = 0 and X ≠ 0, and arbitrary triples
+    (the formulas run on any field elements)."""
+    rng = random.Random(0xD81)
+    cases = [_mont_point(0, 1, 0), _mont_point(5, 7, 0), _mont_point(0, 0, 0)]
+    for pt in [PC.G1_GEN * rng.randrange(1, F.R) for _ in range(4)]:
+        x, y = pt.affine()
+        cases.append(_mont_point(int(x), int(y), 1))
+    cases += [_mont_point(*(rng.randrange(P) for _ in range(3))) for _ in range(8)]
+    cases.append(_mont_point(P - 1, P - 1, P - 1))
+    for pt in cases:
+        dbl = _call(host_lib.h_point_dbl, pt, n=3 * NW)
+        assert np.array_equal(dbl, _call(host_lib.h_point_add, pt, pt, n=3 * NW))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 8, 16, 32, 48, 64, 96, 128])
+def test_host_scan_ladder_matches_plain_at_canonical_values(host_lib, bits):
+    """The header's bit-serial ladder (scan_g1's code) against
+    ``scan_plain``: canonical limbs out, equal to the plain version's
+    canonical residues, on identity rows, zero scalars, a scalar with
+    only its top bit set and borrowed (negative-limb) inputs; the rows
+    are k·P on the host curve."""
+    rng = random.Random(bits * 7)
+    pts = [PC.G1_GEN * rng.randrange(1, F.R) for _ in range(6)] + [PC.G1.infinity()] * 2
+    ks = [rng.randrange(0, 1 << bits) for _ in pts]
+    ks[2] = ks[6] = 0
+    ks[3] = 1 << (bits - 1)
+    limbs = torch.from_numpy(PE.g1_to_limbs(pts))
+    limbs[1] = _borrowed(limbs[1])
+    sbits = torch.from_numpy(PL.scalars_to_bits(ks, bits).astype(np.int32))
+    out = torch.empty_like(limbs)
+    host_lib.h_scan_g1(limbs.data_ptr(), sbits.data_ptr(), out.data_ptr(), len(pts), bits)
+    f = PL.fq()
+    assert torch.equal(f.canon(out), out)
+    assert torch.equal(out, f.canon(cuda_ec.scan_plain(limbs, sbits)))
+    for i, (pt, k) in enumerate(zip(pts, ks)):
+        assert PE.g1_from_limbs(out[i]) == pt * k, i
+
+
+def test_host_scan_ladder_with_no_set_bit_is_the_identity(host_lib):
+    """Every bit 0, so the add of P is computed and dropped on each."""
+    pts = torch.from_numpy(PE.g1_to_limbs([PC.G1_GEN * 5]))
+    out = torch.empty_like(pts)
+    zeros = torch.zeros((1, 16), dtype=torch.int32)
+    host_lib.h_scan_g1(pts.data_ptr(), zeros.data_ptr(), out.data_ptr(), 1, 16)
+    assert PE.g1_from_limbs(out[0]).is_infinity()
+    plain = cuda_ec.scan_plain(pts, zeros)
+    assert torch.equal(out, PL.fq().canon(plain))

@@ -5,10 +5,10 @@ must give the reference Pallas kernel's limbs exactly
 (``pallas_ec.scalar_mul_windowed(..., interpret=True)``; that compile
 takes minutes on a CPU, so the exact-limb case is marked slow) and the
 reference host curve's k·P by wire bytes (tier-1, at the flush's
-96-bit scalar width).  The constant tables of the limb-field header
-(``csrc/bls_fq.cuh``) must equal the Python field's, since the kernels
-cannot run here, and an edit to a header must change every kernel's
-build tag.
+96-bit scalar width).  The kernels' one field header
+(``csrc/bls_mont.cuh``) must hold the Python field's modulus and entry
+table, since the kernels cannot run here, and an edit to it must change
+every kernel's build tag.
 """
 
 import random
@@ -104,33 +104,41 @@ def test_win_g1_checks_its_inputs():
 
 
 def test_cuda_source_constants_match_field():
-    """The __constant__ fold table and subtraction pad of the limb-field
-    header are the field's tables (the kernels run only on the card).
-    ``scan_g1`` includes that header; the windowed kernels include the
-    Montgomery header instead (its tables: tests/test_torch_mont.py);
-    the ring kernel is a copy and includes no field code."""
-    header = kernels.CSRC / "bls_fq.cuh"
-    includes = {"win_g1": "bls_mont.cuh", "win_g2": "bls_mont.cuh", "scan_g1": "bls_fq.cuh"}
+    """The __constant__ tables of the one field header are the limb
+    field's (the kernels run only on the card): p's words are
+    ``limbs.fq().p`` and the entry table takes ``FQ_LIMBS`` limbs of
+    ``LIMB_BITS`` bits.  Every scalar-mul kernel includes that header and
+    defines no table of its own; the ring kernel is a copy and includes
+    no field code."""
+    includes = {"win_g1": "bls_mont.cuh", "win_g2": "bls_mont.cuh", "scan_g1": "bls_mont.cuh"}
     for name, path in kernels.SOURCES.items():
         text = path.read_text()
         found = [h for h in ("bls_fq.cuh", "bls_mont.cuh") if f'#include "{h}"' in text]
         assert found == ([includes[name]] if name in includes else []), name
-        assert "FOLD" not in text, name  # one copy of the tables
-    src = header.read_text()
+        assert "__constant__" not in text, name  # one copy of the tables
+    src = (kernels.CSRC / "bls_mont.cuh").read_text()
 
     def table(name):
-        body = re.search(name + r"\[[^=]*=\s*\{(.*?)\};", src, re.S).group(1)
-        return np.array([int(v) for v in re.findall(r"-?\d+", body)], dtype=np.int32)
+        body = re.search(r"\b" + name + r"(?:\[\w*\])+\s*=\s*\{(.*?)\};", src, re.S).group(1)
+        return [int(v, 16) for v in re.findall(r"0x([0-9a-f]+)u", body)]
+
+    def words(x):
+        return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(12)]
 
     f = PL.fq()
-    assert np.array_equal(table("FOLD"), f.fold.reshape(-1))
-    assert np.array_equal(table("SUB_PAD"), f.sub_pad)
-    assert f.fold.shape == (43, 37)
+    r = 1 << 384
+    assert table("P_W") == words(f.p)
+    to_mont = table("TO_MONT")
+    assert len(to_mont) == 12 * PL.FQ_LIMBS
+    for i in range(PL.FQ_LIMBS):
+        assert to_mont[12 * i : 12 * (i + 1)] == words((1 << (PL.LIMB_BITS * i)) * r * r % f.p), i
+    assert re.search(r"constexpr int L = (\d+);", src).group(1) == str(PL.FQ_LIMBS)
+    assert re.search(r"constexpr int LIMB_BITS = (\d+);", src).group(1) == str(PL.LIMB_BITS)
 
 
 def test_header_edit_changes_every_kernel_tag(tmp_path, monkeypatch):
     """A library's build tag hashes its source and the shared headers,
-    so an edit to bls_fq.cuh never leaves a stale build in place, and an
+    so an edit to bls_mont.cuh never leaves a stale build in place, and an
     edit to one source changes only that source's tag."""
     for path in kernels.CSRC.iterdir():
         (tmp_path / path.name).write_bytes(path.read_bytes())
@@ -140,7 +148,7 @@ def test_header_edit_changes_every_kernel_tag(tmp_path, monkeypatch):
     before = {n: kernels.lib_path(n) for n in kernels.SOURCES}
     assert set(before) == {"win_g1", "win_g2", "scan_g1", "ring_permute"}
     assert len(set(before.values())) == 4
-    header = tmp_path / "bls_fq.cuh"
+    header = tmp_path / "bls_mont.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: kernels.lib_path(n) for n in kernels.SOURCES}
     assert all(after[n] != before[n] for n in before)
