@@ -53,21 +53,59 @@ In order, and with no phase's failure caught:
 3c. **The flat sharded MSM** — ``CudaBackend(mesh=make_mesh(4)).g1_msm``
    at K = 65,536 with 128-bit scalars (identity rows, zero scalars)
    must equal native ``hb_g1_msm``.
-4. **The verified DKG at full width** — ``VectorizedDkg(range(128),
-   42, Random(0xD6)).run(verify_honest=True)``: 236,672 commitment
-   entries in one fused G2 MSM on the card, settling 16,384 row and
-   2,097,152 value checks.  It must log no fault, complete all 128
-   parts and launch ``win_g2``; t + 1 signature shares must combine and
-   verify under the generated key set.  The same dealing with one row
-   cell perturbed must make the fused check return False on the card.
-   ``win_g2`` is then timed on the DKG's own points and scalars, once,
-   and its plain version once at the same shape (canonical values).
+4. **The verified DKG at full width** — ``VectorizedDkg(range(128), 42,
+   Random(0xD6)).run(verify_honest=True)`` (``bench_dkg_verified``'s
+   shape): 236,672 commitment entries in one fused G2 MSM on the card,
+   settling 16,384 row and 2,097,152 value checks.  It must log no
+   fault, complete all 128 parts and launch ``win_g2``; t + 1 signature
+   shares must combine and verify under the generated key set.  The
+   same dealing with one row cell perturbed must make the fused check
+   return False on the card.  ``win_g2`` is then timed once on the
+   DKG's whole fused MSM, and once beside its plain version on the
+   first 65,536 rows; the kernel must equal the plain version at
+   canonical values on those rows and on the last 1,000 (the plain
+   version over every row would take over two minutes).
+4b. **The HoneyBadger epoch** — ``VectorizedHoneyBadgerSim`` end to end
+   (threshold encryption, the batched reliable broadcast on the host,
+   the array agreement, the decryption flush on the card, Lagrange
+   combines, batch assembly).  (a) n = 64, real BLS, ``Random(0x64)``,
+   ``verify_honest=True`` (``bench_hb_epoch64_real``'s shape with every
+   one of the 4,096 shares verified): three epochs on ``CudaBackend()``
+   — each batch equal to the contributions, 4,096 shares verified, no
+   fault, one ``win_g1`` launch an epoch; a twin sim on the host
+   ``CpuBackend()`` must give the same batch bytes, accepted set, fault
+   log, coin flips, share count and agreement epochs; the same three
+   epochs on ``CudaBackend(mesh=make_mesh(4))`` the same batches, with
+   4 ``win_g1`` launches and one ``ring_permute`` launch a sending card
+   a ring round each.  (b) N = 1024, real BLS, ``Random(0x1024)``, the
+   last 50 nodes dead, ``verify_honest=True``, ``emit_minimal=False``
+   (``bench_hb_1024_real``'s shape): the setup wall; a cold epoch
+   carrying one forged decryption share from one live sender for one
+   proposer — the fault log must name exactly that sender and the batch
+   hold all 974 live contributions; then a warm honest epoch — its batch
+   equal to the contributions, 974² shares verified, no fallback group —
+   with its wall and phase walls.  Each of the two launches ``win_g1``
+   exactly once and no other kernel.  ``win_g1`` is
+   then timed once at that flush's shape (948,676 points, 96-bit
+   scalars), its first and last 1,000 rows held against the plain
+   version (the whole shape would take the plain version about a
+   minute).
 5. **scan_g1** — lies on no production path: its entry point
    ``scalar_mul_scan`` (the counterpart of ``scalar_mul_pallas``) is
    driven once at K = 65,536 × 255 bits and checked against native on a
    sample, then the kernel and its plain version are timed there.
 6. **Report** — the ``kernels`` JSON line (launches counted per path:
-   each path's counts are set to 0 just before it and read just after),
+   each path's counts are set to 0 just before it and read just after —
+   the flush, the mesh flush, the DKG, the n = 64 epochs on the card
+   (``epoch64``), on the mesh (``epoch64_mesh``) and the N = 1024
+   epochs (``epoch1024``) each on its own; ``launches`` is the N = 1024
+   epochs' for ``win_g1``, the mesh epochs' for ``ring_permute``, the
+   DKG's for ``win_g2`` and the entry point's for ``scan_g1``, and
+   ``launches_by_path`` lists every path's; ``win_g2``'s row is timed
+   on the DKG's first 65,536 rows and adds ``dkg_ms`` /
+   ``dkg_bound_ms`` at its whole 236,672; ``win_g1``'s row is timed at
+   the flush's 65,536 points and adds ``epoch_ms`` / ``epoch_bound_ms``
+   at the N = 1024 epoch's 948,676),
    the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -105,6 +143,12 @@ RING_REPS = 200
 # (~50 ms at the H100's 1.98 GHz boost clock)
 RING_SLEEP_CYCLES = 100_000_000
 FLAT_BITS = 128
+EPOCH_NODES = 64
+EPOCH_SEED = 0x64
+EPOCH_RUNS = 3
+BIG_NODES = 1024
+BIG_SEED = 0x1024
+BIG_DEAD = 50
 
 # The card's peak int32 multiply-add rate: the published fp32 rate of an
 # H100 SXM (67 TFLOP/s = 2 flops per FMA lane-clock) halved for the
@@ -703,21 +747,163 @@ def main() -> int:
         fail(f"the perturbed fused check was not rejected on the card (ok={ok})")
     log(f"dkg perturbed row cell: fused check rejected on the card in {time.perf_counter() - t0} s")
 
-    # win_g2 timed on the DKG's own fused-MSM points and scalars
+    # win_g2 timed on the DKG's own fused-MSM points and scalars, whole;
+    # its plain version (about 0.6 ms a point) on the first K_TIME rows,
+    # beside the kernel on the same rows, and on the last K_CHECK rows
     g2_wires, scalars, _ = dkg._fused_terms(deal.rows, deal.vals, deal.commit_wires, deal.n_ackers)
     arr = np.frombuffer(b"".join(g2_wires), dtype=np.uint8).reshape(-1, 192).copy()
     g2_pts = PM._wire_points_g2(torch.from_numpy(arr).to(dev))
     dig = digits_for(scalars, 32)
-    got, win_g2_ms = timed(lambda: cuda_ec.win_g2(g2_pts, dig))
-    plain, win_g2_plain_ms = timed(lambda: cuda_ec.windowed_g2_plain(g2_pts, dig))
-    record_err("win_g2", got, plain, f"at the DKG's K={entries}")
-    del plain, got, g2_pts
-    win_g2_bound = windowed_bound(dig, g2=True)
-    log(
-        f"win_g2 K={entries} nwin={dig.shape[1]}: kernel {win_g2_ms} ms, plain "
-        f"{win_g2_plain_ms} ms, bound {win_g2_bound[0]} ms ({win_g2_bound[1]}), "
-        f"equal at canonical values"
+    got, dkg_g2_ms = timed(lambda: cuda_ec.win_g2(g2_pts, dig))
+    head, tail = slice(0, min(K_TIME, entries)), slice(entries - K_CHECK, entries)
+    record_err(
+        "win_g2", got[tail], cuda_ec.windowed_g2_plain(g2_pts[tail], dig[tail]),
+        f"at the DKG's K={entries}, rows {tail.start}..{tail.stop}",
     )
+    got, win_g2_ms = timed(lambda: cuda_ec.win_g2(g2_pts[head], dig[head]))
+    plain, win_g2_plain_ms = timed(lambda: cuda_ec.windowed_g2_plain(g2_pts[head], dig[head]))
+    record_err("win_g2", got, plain, f"at the DKG's K={entries}, rows 0..{head.stop}")
+    del plain, got, g2_pts
+    win_g2_bound = windowed_bound(dig[head], g2=True)
+    dkg_g2_bound = windowed_bound(dig, g2=True)
+    log(
+        f"win_g2 K={head.stop} nwin={dig.shape[1]} (the DKG's first rows): kernel {win_g2_ms} "
+        f"ms, plain {win_g2_plain_ms} ms, bound {win_g2_bound[0]} ms ({win_g2_bound[1]}); "
+        f"K={entries} (the DKG's fused MSM): kernel {dkg_g2_ms} ms, bound {dkg_g2_bound[0]} "
+        f"ms; rows 0..{head.stop} and the last {K_CHECK} equal at canonical values"
+    )
+
+    # -- 4b. the HoneyBadger epoch ------------------------------------------
+    from hbbft_tpu_torch.core.serialize import dumps
+    from hbbft_tpu_torch.crypto.backend import CpuBackend
+    from hbbft_tpu_torch.harness.epoch import VectorizedHoneyBadgerSim
+
+    def outcome(res):
+        """Everything the twins must agree on, comparable with ``==``."""
+        return (
+            dumps(res.batch),
+            res.accepted,
+            [(f.node_id, f.kind.name) for f in res.fault_log],
+            res.coin_flips,
+            res.shares_verified,
+            res.agreement_epochs,
+        )
+
+    contribs64 = {i: [b"e64-%d" % i] for i in range(EPOCH_NODES)}
+
+    def epochs64(what: str, per_epoch, **kw):
+        """EPOCH_RUNS honest n = 64 epochs; each must commit every
+        contribution with 4,096 shares verified, no fault and exactly
+        ``per_epoch`` kernel launches."""
+        t0 = time.perf_counter()
+        sim = VectorizedHoneyBadgerSim(EPOCH_NODES, random.Random(EPOCH_SEED), **kw)
+        setup = time.perf_counter() - t0
+        outs, walls = [], []
+        for e in range(EPOCH_RUNS):
+            before = dict(cuda_ec.LAUNCHES)
+            t0 = time.perf_counter()
+            res = sim.run_epoch(contribs64)
+            walls.append(time.perf_counter() - t0)
+            launches = {k: cuda_ec.LAUNCHES[k] - before[k] for k in before}
+            if res.batch.contributions != contribs64 or res.shares_verified != EPOCH_NODES**2:
+                fail(f"{what} epoch {e}: batch or share count wrong ({res.shares_verified})")
+            if not res.fault_log.is_empty():
+                fail(f"{what} epoch {e}: honest epoch logged faults {res.fault_log}")
+            if any(launches[k] != per_epoch.get(k, 0) for k in launches):
+                fail(f"{what} epoch {e} launched {launches}, not {per_epoch}")
+            outs.append(outcome(res))
+        if sim.be.stats.fallback_groups:
+            fail(f"{what}: an honest epoch fell back: {sim.be.stats}")
+        log(f"epoch n={EPOCH_NODES} {what}: setup {setup} s, epoch walls {walls}; phases "
+            + json.dumps(res.phases))
+        return outs
+
+    # each epoch path's counts are set to 0 just before it and read just after
+    cuda_ec.reset_launches()
+    card64 = epochs64("CudaBackend()", {"win_g1": 1})
+    epoch64_launches = dict(cuda_ec.LAUNCHES)
+    host64 = epochs64("CpuBackend()", {}, ops=CpuBackend())
+    if card64 != host64:
+        fail("the n = 64 epochs on the card and on the host differ")
+    cuda_ec.reset_launches()
+    mesh64 = epochs64(f"CudaBackend(mesh={mesh})", want_launches, ops=CudaBackend(mesh=mesh))
+    mesh64_launches = dict(cuda_ec.LAUNCHES)
+    if mesh64_launches["ring_permute"] < 1:
+        fail("ring_permute was not launched on the mesh epoch path")
+    if mesh64 != card64:
+        fail("the n = 64 epochs on the mesh and on one card differ")
+    log(f"epoch n={EPOCH_NODES}: {EPOCH_RUNS} epochs identical on the card, the host and "
+        f"the mesh (batch bytes, accepted, faults, coins, shares, agreement epochs)")
+
+    big_dead = set(range(BIG_NODES - BIG_DEAD, BIG_NODES))
+    contribs = {i: [b"real-%04d" % i] for i in range(BIG_NODES) if i not in big_dead}
+
+    def one_win_g1(what: str, before) -> None:
+        """An N = 1024 epoch launches win_g1 exactly once, and nothing else."""
+        launches = {k: cuda_ec.LAUNCHES[k] - before[k] for k in before}
+        if launches != {k: int(k == "win_g1") for k in launches}:
+            fail(f"{what} N={BIG_NODES} epoch launched {launches}, not win_g1 once")
+
+    cuda_ec.reset_launches()
+    t0 = time.perf_counter()
+    sim = VectorizedHoneyBadgerSim(
+        BIG_NODES, random.Random(BIG_SEED), verify_honest=True, emit_minimal=False
+    )
+    log(f"epoch N={BIG_NODES} ({BIG_DEAD} dead): setup {time.perf_counter() - t0} s")
+    forger, victim = 3, 5
+    forged = {forger: {victim: T.DecryptionShare(G1_GEN * 0xBAD)}}
+    before = dict(cuda_ec.LAUNCHES)
+    t0 = time.perf_counter()
+    res = sim.run_epoch(contribs, dead=big_dead, forged_dec=forged)
+    cold_s = time.perf_counter() - t0
+    one_win_g1("cold", before)
+    faults = [(f.node_id, f.kind.name) for f in res.fault_log]
+    if faults != [(forger, "INVALID_DECRYPTION_SHARE")]:
+        fail(f"cold N={BIG_NODES} epoch: fault log {faults}, not the forger {forger}")
+    if res.batch.contributions != contribs:
+        fail(f"cold N={BIG_NODES} epoch: batch of {len(res.batch.contributions)}")
+    log(f"epoch N={BIG_NODES} cold, one forged share ({forger} for {victim}): {cold_s} s, "
+        f"forger attributed, {len(contribs)} contributions committed; stats {sim.be.stats}; "
+        f"phases " + json.dumps(res.phases))
+    sim.be.stats = type(sim.be.stats)()
+    before = dict(cuda_ec.LAUNCHES)
+    t0 = time.perf_counter()
+    res = sim.run_epoch(contribs, dead=big_dead)
+    warm_s = time.perf_counter() - t0
+    one_win_g1("warm", before)
+    n_live = BIG_NODES - BIG_DEAD
+    if res.batch.contributions != contribs or res.shares_verified != n_live**2:
+        fail(f"warm N={BIG_NODES} epoch: batch or share count ({res.shares_verified}) wrong")
+    if not res.fault_log.is_empty() or sim.be.stats.fallback_groups != 0:
+        fail(f"warm N={BIG_NODES} epoch: faults {res.fault_log}, stats {sim.be.stats}")
+    big_launches = dict(cuda_ec.LAUNCHES)
+    log(f"epoch N={BIG_NODES} warm: {warm_s} s, {res.shares_verified} shares verified, "
+        f"no fallback, launches on the N={BIG_NODES} path (cold and warm) {big_launches}; "
+        f"n={EPOCH_NODES} card path {epoch64_launches}, mesh path {mesh64_launches}; phases "
+        + json.dumps(res.phases))
+    del sim, res
+
+    # win_g1 timed at the N = 1024 epoch's flush shape (the flush points
+    # repeated; the kernel's work does not depend on which points)
+    _, pts = g1_points(K_TIME, 64)
+    k_big = n_live**2
+    reps = -(-k_big // K_TIME)
+    big_pts = pts.repeat(reps, 1, 1)[:k_big]
+    big_dig = digits_for([rng.randrange(1, 1 << 96) for _ in range(K_TIME)], 12).repeat(reps, 1)[
+        :k_big
+    ]
+    cuda_ec.win_g1(big_pts[:K_TIME], big_dig[:K_TIME])  # warm-up
+    got, big_ms = timed(lambda: cuda_ec.win_g1(big_pts, big_dig))
+    for rows in (slice(0, K_CHECK), slice(k_big - K_CHECK, k_big)):
+        record_err(
+            "win_g1", got[rows], cuda_ec.windowed_plain(big_pts[rows], big_dig[rows]),
+            f"at the epoch shape, rows {rows.start}..{rows.stop}",
+        )
+    big_bound = windowed_bound(big_dig, g2=False)
+    log(f"win_g1 K={k_big} nwin={big_dig.shape[1]} (the N={BIG_NODES} epoch's flush): kernel "
+        f"{big_ms} ms, bound {big_bound[0]} ms ({big_bound[1]}); first and last "
+        f"{K_CHECK} rows equal to the plain version at canonical values")
+    del big_pts, big_dig, got
 
     # -- 5. scan_g1 through its entry point, then timed --------------------
     wires, pts = g1_points(K_TIME, 64)
@@ -746,6 +932,17 @@ def main() -> int:
     )
 
     # -- 6. report ------------------------------------------------------
+    by_path = {
+        "win_g1": {"flush": flush_launches["win_g1"], "mesh_flush": mesh_launches["win_g1"],
+                   "epoch64": epoch64_launches["win_g1"],
+                   "epoch64_mesh": mesh64_launches["win_g1"],
+                   "epoch1024": big_launches["win_g1"]},
+        "win_g2": {"dkg": dkg_launches["win_g2"]},
+        "scan_g1": {"scalar_mul_scan": scan_launches["scan_g1"]},
+        "ring_permute": {"mesh_flush": mesh_launches["ring_permute"],
+                         "epoch64_mesh": mesh64_launches["ring_permute"]},
+    }
+
     def row(name, replaces, launches, ms, plain_ms, bound, library_ms=None):
         # library_ms None: no PyTorch call computes an EC scalar multiplication
         return {
@@ -754,6 +951,7 @@ def main() -> int:
             "source": f"hbbft_tpu_torch/csrc/{name}.cu",
             "replaces": replaces,
             "launches": launches,
+            "launches_by_path": by_path[name],
             "max_abs_err": max_err[name],
             "compared": compared[name],
             "ms": ms,
@@ -765,14 +963,22 @@ def main() -> int:
 
     kernels_line = {
         "kernels": [
-            row("win_g1", "hbbft_tpu/ops/pallas_ec.py:230", flush_launches["win_g1"],
-                win_g1_ms, win_g1_plain_ms, win_g1_bound),
-            row("win_g2", "hbbft_tpu/ops/pallas_ec.py:283", dkg_launches["win_g2"],
-                win_g2_ms, win_g2_plain_ms, win_g2_bound),
+            dict(
+                row("win_g1", "hbbft_tpu/ops/pallas_ec.py:230", big_launches["win_g1"],
+                    win_g1_ms, win_g1_plain_ms, win_g1_bound),
+                # the N = 1024 epoch's flush shape, beside the flush's
+                epoch_k=k_big, epoch_ms=big_ms, epoch_bound_ms=big_bound[0],
+            ),
+            dict(
+                row("win_g2", "hbbft_tpu/ops/pallas_ec.py:283", dkg_launches["win_g2"],
+                    win_g2_ms, win_g2_plain_ms, win_g2_bound),
+                # the DKG's whole fused MSM, beside its first K_TIME rows
+                dkg_k=entries, dkg_ms=dkg_g2_ms, dkg_bound_ms=dkg_g2_bound[0],
+            ),
             row("scan_g1", "hbbft_tpu/ops/pallas_ec.py:291", scan_launches["scan_g1"],
                 scan_ms, scan_plain_ms, scan_b),
             row("ring_permute", "hbbft_tpu/ops/pallas_ec.py:882",
-                mesh_launches["ring_permute"], ring_ms, ring_plain_ms, ring_b, ring_lib_ms),
+                mesh64_launches["ring_permute"], ring_ms, ring_plain_ms, ring_b, ring_lib_ms),
         ]
     }
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start} s")

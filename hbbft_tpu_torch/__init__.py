@@ -11,13 +11,20 @@ verification MSM of the dealerless DKG (``harness/dkg.py``), with the
 windowed G2 scalar multiplication in ``csrc/win_g2.cu``.  The flush
 also runs sharded over a mesh (``parallel/mesh.py``): each shard on its
 own stream and card, the group partials ring-reduced by
-``csrc/ring_permute.cu``.  The bit-serial G1 ladder
-(``csrc/scan_g1.cu``) lies on no production path.
+``csrc/ring_permute.cu``.  Whole HoneyBadger epochs
+(``harness/epoch.py``: ``VectorizedHoneyBadgerSim``,
+``VectorizedQueueingSim``) run over that flush: encryption, the
+reliable broadcast and the agreement on the host, every epoch's
+decryption shares and coin shares verified on the card.  The bit-serial
+G1 ladder (``csrc/scan_g1.cu``) lies on no production path.
 
 Entry points run on the card unless the caller asks for the CPU:
-``ops.backend_cuda.CudaBackend()``, ``harness.dkg.VectorizedDkg(...)``
-and ``parallel.mesh.make_mesh(n)`` mean ``torch.device("cuda")`` and
-raise when CUDA is absent;
+``ops.backend_cuda.CudaBackend()``, ``harness.dkg.VectorizedDkg(...)``,
+``harness.epoch.VectorizedHoneyBadgerSim(n, rng)``,
+``core.network_info.NetworkInfo.generate_map(...)`` and
+``parallel.mesh.make_mesh(n)`` mean ``torch.device("cuda")`` and raise
+when CUDA is absent;
 ``device="cpu"`` runs every kernel's plain PyTorch version instead (the
-CPU tests do this).
+CPU tests do this; the epoch's entry points take it as
+``ops=CudaBackend(device="cpu")``).
 """

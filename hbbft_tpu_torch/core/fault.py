@@ -1,10 +1,12 @@
-"""Byzantine-fault evidence log — the subset the DKG reports.
+"""Byzantine-fault evidence log — the kinds the DKG and the epoch report.
 
 The port's own copy of ``FaultKind``, ``Fault`` and ``FaultLog`` from
 ``hbbft_tpu/core/fault.py`` (reference ``src/fault_log.rs``), trimmed to
-the kinds the verified DKG attributes: a dealer whose row fails its
-commitment committed an invalid Part, an ack sender whose value fails
-committed an invalid Ack.  Names and texts are the reference's, so two
+the kinds the verified DKG and the vectorized HoneyBadger epoch
+attribute: invalid DKG Parts and Acks; in an epoch, invalid decryption
+and coin signature shares, invalid ciphertexts, undecryptable or
+undeserializable contributions, invalid Merkle proofs and broadcasts
+that cannot be reconstructed.  Names and texts are the reference's, so two
 logs compare by ``(node_id, kind.name)``.  The reference's trace
 telemetry is not carried over; faults are logged at DEBUG level.
 """
@@ -20,8 +22,16 @@ log = logging.getLogger("hbbft_tpu_torch")
 
 
 class FaultKind(enum.Enum):
-    """Typed reasons a node can be flagged as faulty (DKG subset)."""
+    """Typed reasons a node can be flagged as faulty (DKG and epoch
+    subset)."""
 
+    INVALID_DECRYPTION_SHARE = "sent an invalid threshold-decryption share"
+    INVALID_CIPHERTEXT = "proposed an invalid ciphertext"
+    SHARE_DECRYPTION_FAILED = "contribution could not be decrypted from combined shares"
+    BATCH_DESERIALIZATION_FAILED = "batch contribution failed to deserialize"
+    INVALID_SIGNATURE_SHARE = "sent an invalid threshold-signature share"
+    INVALID_PROOF = "sent an Echo or Value with an invalid Merkle proof"
+    BROADCAST_DECODING_FAILED = "broadcast value could not be reconstructed"
     INVALID_PART = "committed an invalid DKG Part"
     INVALID_ACK = "committed an invalid DKG Ack"
 
@@ -58,6 +68,10 @@ class FaultLog:
 
     def add(self, node_id: Any, kind: FaultKind) -> None:
         self.append(Fault(node_id, kind))
+
+    def merge(self, other: "FaultLog") -> None:
+        """Drain ``other`` into self (reference ``merge_into``)."""
+        self._faults.extend(other._faults)
 
     def is_empty(self) -> bool:
         return not self._faults

@@ -1,10 +1,10 @@
 """The ``CryptoBackend`` seam — the host half.
 
 The port's own copy of ``CpuBackend`` and ``EagerFinalizer`` from
-``hbbft_tpu/crypto/backend.py`` (the group-MSM and share-verification
-planes; the RS, Merkle and SHA-many planes are not part of this slice).
-``ops.backend_cuda.CudaBackend`` subclasses it and moves the G1 MSMs
-onto the card.
+``hbbft_tpu/crypto/backend.py``: the group-MSM and share-verification
+planes, and the reliable-broadcast plane (batched SHA-256, Merkle trees,
+Reed–Solomon codecs) on the native host.  ``ops.backend_cuda.CudaBackend``
+subclasses it and moves the G1 MSMs onto the card.
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ from typing import List, Optional, Sequence
 from . import fields as F
 from . import threshold as T
 from .curve import G1, G2, g1_multi_exp, g2_multi_exp
+from .hashing import sha256
+from .merkle import MerkleTree
+from .rs import make_codec
 
 
 class EagerFinalizer:
@@ -60,6 +63,23 @@ class CpuBackend:
     """Pure host-side ops backend (the correctness oracle)."""
 
     name = "cpu"
+
+    # -- hashing / merkle / erasure coding (the broadcast plane) -----------
+
+    def sha256_many(self, items: Sequence[bytes]) -> List[bytes]:
+        from .. import native as NT
+
+        if NT.available():
+            return NT.sha256_many(list(items))
+        return [sha256(b) for b in items]
+
+    def merkle_tree(self, values: List[bytes]) -> MerkleTree:
+        return MerkleTree(values)
+
+    def rs_codec(self, data_shards: int, parity_shards: int):
+        return make_codec(data_shards, parity_shards)
+
+    # -- group MSMs --------------------------------------------------------
 
     def g1_msm(self, points: Sequence[G1], scalars: Sequence[int]) -> G1:
         return g1_multi_exp(points, scalars)

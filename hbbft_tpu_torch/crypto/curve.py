@@ -1,13 +1,14 @@
 """BLS12-381 G1/G2 group arithmetic and zcash-format serialization.
 
 The port's own copy of the host group layer of
-``hbbft_tpu/crypto/curve.py`` (the subset the share-verification flush
-needs): Jacobian ``(X, Y, Z)`` tuples over Fq / Fq2 (``Z == 0`` ⇒
-infinity) from one shared formula source, the compressed zcash encoding
-(48-byte G1 / 96-byte G2, flag bits 0x80/0x40/0x20) used for cache keys
-and Fiat–Shamir transcripts, the native 96/192-byte wire, Montgomery
-batch normalization, and the host MSMs (native Pippenger when the C++
-library is built, naive double-and-add otherwise).
+``hbbft_tpu/crypto/curve.py``: Jacobian ``(X, Y, Z)`` tuples over Fq /
+Fq2 (``Z == 0`` ⇒ infinity) from one shared formula source, the
+compressed zcash encoding (48-byte G1 / 96-byte G2, flag bits
+0x80/0x40/0x20) used for cache keys, Fiat–Shamir transcripts and the
+``@wire`` codec (``from_bytes`` decodes it strictly: on the curve and in
+the r-torsion subgroup), the native 96/192-byte wire, Montgomery batch
+normalization, and the host MSMs (native Pippenger when the C++ library
+is built, naive double-and-add otherwise).
 """
 
 from __future__ import annotations
@@ -306,11 +307,23 @@ class _Point:
             raise ValueError("point not on curve")
         return pt
 
+    def in_subgroup(self) -> bool:
+        # unreduced multiply-by-r (``mul`` reduces mod r and would be
+        # vacuous here)
+        nt = _native()
+        if nt is not None:
+            return self._native_mul(nt, F.R).is_infinity()
+        return self.ops["is_inf"](self.ops["mul_raw"](self.jac, F.R))
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.to_bytes().hex()[:16]}…)"
 
     def _wire_fields(self):
         return (self.to_bytes(),)
+
+    @classmethod
+    def _from_wire(cls, data: bytes):
+        return cls.from_bytes(data)
 
 
 @wire("G1")
@@ -348,6 +361,31 @@ class G1(_Point):
         if aff is None:
             return bytes(96)
         return aff[0].to_bytes(48, "big") + aff[1].to_bytes(48, "big")
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "G1":
+        if len(data) != 48:
+            raise ValueError("G1 must be 48 bytes compressed")
+        flags = data[0]
+        if not flags & 0x80:
+            raise ValueError("uncompressed G1 not supported")
+        if flags & 0x40:
+            if any(data[1:]) or flags != 0xC0:
+                raise ValueError("malformed G1 infinity")
+            return cls.infinity()
+        x = int.from_bytes(bytes([flags & 0x1F]) + data[1:], "big")
+        if x >= F.P:
+            raise ValueError("G1 x out of range")
+        y = F.fq_sqrt((x**3 + B1) % F.P)
+        if y is None:
+            raise ValueError("G1 x not on curve")
+        if bool(flags & 0x20) != _is_lex_largest_fq(y):
+            y = F.P - y
+        pt = cls.from_affine((x, y))
+        if not pt.in_subgroup():
+            raise ValueError("G1 point not in subgroup")
+        pt._cbytes = bytes(data)  # strictly validated ⇒ canonical
+        return pt
 
 
 @wire("G2")
@@ -388,6 +426,33 @@ class G2(_Point):
             return bytes(192)
         (x0, x1), (y0, y1) = aff
         return b"".join(v.to_bytes(48, "big") for v in (x0, x1, y0, y1))
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "G2":
+        if len(data) != 96:
+            raise ValueError("G2 must be 96 bytes compressed")
+        flags = data[0]
+        if not flags & 0x80:
+            raise ValueError("uncompressed G2 not supported")
+        if flags & 0x40:
+            if any(data[1:]) or flags != 0xC0:
+                raise ValueError("malformed G2 infinity")
+            return cls.infinity()
+        x1 = int.from_bytes(bytes([flags & 0x1F]) + data[1:48], "big")
+        x0 = int.from_bytes(data[48:], "big")
+        if x0 >= F.P or x1 >= F.P:
+            raise ValueError("G2 x out of range")
+        x = (x0, x1)
+        y = F.fq2_sqrt(F.fq2_add(F.fq2_mul(F.fq2_sq(x), x), B2))
+        if y is None:
+            raise ValueError("G2 x not on curve")
+        if bool(flags & 0x20) != _is_lex_largest_fq2(y):
+            y = F.fq2_neg(y)
+        pt = cls.from_affine((x, y))
+        if not pt.in_subgroup():
+            raise ValueError("G2 point not in subgroup")
+        pt._cbytes = bytes(data)  # strictly validated ⇒ canonical
+        return pt
 
 
 G1_GEN = G1.from_affine((_G1_X, _G1_Y))

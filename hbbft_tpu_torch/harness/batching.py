@@ -1,10 +1,12 @@
 """Batched crypto façade — one fused device flush per round of shares.
 
 The port of ``hbbft_tpu/harness/batching.py``: :class:`BatchingBackend`,
-:class:`DecObligation`, :class:`SigObligation`, ``_prefetch_real`` and
-``_fused_check``, with the reference's transcript, coefficients and
-per-group / per-item fallback semantics, so every verdict it caches is
-the one the reference caches for the same obligations.
+:class:`DecObligation`, :class:`SigObligation`, ``_prefetch_real``,
+``_fused_check`` and the reveal plane's ``reveal_combine``, with the
+reference's transcript, coefficients and per-group / per-item fallback
+semantics, so every verdict it caches is the one the reference caches
+for the same obligations.  ``crypto_obligations`` (the sequential
+engines' obligation extractor) is not ported yet.
 
 How it works: share verifications route through the ``CryptoBackend``
 seam (``verify_sig_share`` / ``verify_dec_share``) and are memoized by
@@ -206,6 +208,41 @@ class BatchingBackend:
             self._cache[key] = self._verify_one(ob)
         if real:
             self._prefetch_real(real)
+
+    # -- reveal plane (order-then-reveal cross-epoch decryption) -----------
+
+    def reveal_combine(
+        self,
+        pk_set,
+        rows: List[Dict[int, Any]],
+        cts: List[Any],
+        epochs: Optional[List[int]] = None,
+    ) -> List[Optional[bytes]]:
+        """Cross-epoch batched combine-and-check: every pending reveal's
+        speculative share subsets — rows of several epochs — go through
+        ONE ``combine_and_check_decryption_shares_many`` call (two
+        pairings for real BLS; per-row Fiat–Shamir coefficients, so
+        batching across epochs is row-wise identical to per-epoch
+        calls).  One plaintext-or-None per row, row order kept.
+        ``epochs`` names each row's epoch; the reference records it in a
+        trace event, which the port does not carry."""
+        many = getattr(pk_set, "combine_and_check_decryption_shares_many", None)
+        if many is not None:
+            try:
+                results = many(rows, cts)
+            except Exception:
+                results = [None] * len(rows)
+        else:
+            one = getattr(pk_set, "combine_and_check_decryption_shares", None)
+            results = []
+            for row, ct in zip(rows, cts):
+                try:
+                    pt = one(row, ct) if one is not None else None
+                except Exception:
+                    pt = None
+                results.append(pt)
+        self.stats.flushes += 1
+        return results
 
     @staticmethod
     def _is_real_bls(ob: Obligation) -> bool:

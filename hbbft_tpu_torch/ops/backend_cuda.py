@@ -24,6 +24,13 @@ over the shards and ring-reduces the group partials
 groups run on ``device``.  A 1-shard mesh is the single-device path.
 The mesh is an argument only: no environment variable makes one, and a
 mesh failure raises like any device failure.
+
+The reliable-broadcast plane (``sha256_many``, ``merkle_tree``,
+``rs_codec``) is inherited from ``CpuBackend`` and runs on the native
+host, as on the reference's CPU backend: its TPU version is a jitted
+XLA program (``ops/gf256_jax.py``, ``ops/sha256_jax.py``), not a Pallas
+kernel, and its port to the card is still to come.  It is the host
+path by design, not a fallback: nothing here tries the card first.
 """
 
 from __future__ import annotations
