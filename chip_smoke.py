@@ -6,7 +6,9 @@ It needs one CUDA card, ``nvcc`` and a C++ compiler, and no network.
 In order, and with no phase's failure caught:
 
 1. **Build** — the native host library (``make -C native``) and every
-   CUDA kernel of the port (one ``nvcc`` per source, all at once), with
+   CUDA kernel of the port (``win_g1``, ``win_g2``, ``scan_g1``,
+   ``ring_permute``, ``fr_matmul``; one ``nvcc`` per source, all at
+   once), with
    the build seconds and ``ptxas`` resource lines printed.
 2. **Kernels against their plain versions** — at K = 1000 (not a
    multiple of 128) on random r-torsion points with identity rows and
@@ -62,7 +64,7 @@ In order, and with no phase's failure caught:
    same dealing with one row cell perturbed must make the fused check
    return False on the card.  ``win_g2`` is then timed once on the
    DKG's whole fused MSM, and once beside its plain version on the
-   first 65,536 rows; the kernel must equal the plain version at
+   first 16,384 rows; the kernel must equal the plain version at
    canonical values on those rows and on the last 1,000 (the plain
    version over every row would take over two minutes).
 4b. **The HoneyBadger epoch** — ``VectorizedHoneyBadgerSim`` end to end
@@ -90,6 +92,30 @@ In order, and with no phase's failure caught:
    scalars), its first and last 1,000 rows held against the plain
    version (the whole shape would take the plain version about a
    minute).
+4c. **The era change at N = 1024** — (a) ``fr_matmul`` (the DKG's Fr
+   products, ``ops/fr.py``) against its plain version on the card, word
+   for word (max |Δ| 0 at canonical values): random entries at one
+   dealer's three shapes of the N = 1023 dealing (``[681, 341]·[341,
+   341]``, ``[341, 341]·[341, 1023]`` and ``[1, 341]·[341, 1023]``, each
+   with ``acc``), every entry r − 1 and every entry 2^256 − 1 at
+   k = 971 (the bound ``fr_matmul`` takes), zeros and an odd
+   ``[7, 5]·[5, 13]``
+   (the worst cases, zeros and the odd one also against Python); then
+   timed at the value-grid shape beside its plain version.  (b) The
+   ``coeffs`` path: ``VectorizedDkg(range(64), 21, Random(0xD0))`` with
+   ``_dealer_coeffs(Random(0xC0FFEE))`` on ``engine="device"`` must equal
+   ``engine="host"`` (public key, commitment, every share) and launch
+   ``fr_matmul``.  (c) The churn at ``bench_churn_1024``'s shape
+   (``bench.py:2029``): ``VectorizedDynamicSim(1024, Random(0xC5),
+   mock=False, verify_honest=False, emit_minimal=True)`` on
+   ``CudaBackend()``; nodes 0..341 vote ``Remove(1023)``; the first
+   epoch must return ``Complete(Remove(1023))`` with era 1 and 1023 gone,
+   its DKG (t = 340) on the device engine; t + 1 signature shares of the
+   new keys must combine and verify, 16 sampled nodes' commitment
+   evaluations equal G2·share, and the next epoch commit all 1,023
+   contributions; the path launches ``fr_matmul`` and no EC kernel.
+   The setup wall, ``era_switch_s``, the DKG's wall and stage walls
+   (dealing, generation, key rebuild) and ``next_epoch_s`` are printed.
 5. **scan_g1** — lies on no production path: its entry point
    ``scalar_mul_scan`` (the counterpart of ``scalar_mul_pallas``) is
    driven once at K = 65,536 × 255 bits and checked against native on a
@@ -100,12 +126,17 @@ In order, and with no phase's failure caught:
    (``epoch64``), on the mesh (``epoch64_mesh``) and the N = 1024
    epochs (``epoch1024``) each on its own; ``launches`` is the N = 1024
    epochs' for ``win_g1``, the mesh epochs' for ``ring_permute``, the
-   DKG's for ``win_g2`` and the entry point's for ``scan_g1``, and
-   ``launches_by_path`` lists every path's; ``win_g2``'s row is timed
-   on the DKG's first 65,536 rows and adds ``dkg_ms`` /
+   DKG's for ``win_g2``, the entry point's for ``scan_g1`` and the
+   churn's (``churn1024``) for ``fr_matmul``, and ``launches_by_path``
+   lists every path's, ``fr_matmul``'s with ``fr_check`` and
+   ``dkg_coeffs``; ``win_g2``'s row is timed
+   on the DKG's first 16,384 rows and adds ``dkg_ms`` /
    ``dkg_bound_ms`` at its whole 236,672; ``win_g1``'s row is timed at
    the flush's 65,536 points and adds ``epoch_ms`` / ``epoch_bound_ms``
-   at the N = 1024 epoch's 948,676),
+   at the N = 1024 epoch's 948,676; ``fr_matmul``'s is timed at the
+   value-grid shape, its bound the smaller of its IMAD count and the
+   limb form's int8 tensor-core count, and adds ``dealing_s`` /
+   ``dealing_bound_ms`` for the churn's whole N = 1023 dealing),
    the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -135,6 +166,9 @@ TIME_REPS = 3
 DKG_NODES = 128
 DKG_T = 42
 DKG_SEED = 0xD6
+# win_g2's plain version is timed on this many of the DKG's rows (about
+# 0.6 ms a row; 16,384 keeps the script well inside its time limit)
+G2_PLAIN_ROWS = 1 << 14
 SCAN_BITS = 255
 MESH_SHARDS = 4
 RING_ROWS = (GROUPS, 5)
@@ -149,6 +183,7 @@ EPOCH_RUNS = 3
 BIG_NODES = 1024
 BIG_SEED = 0x1024
 BIG_DEAD = 50
+CHURN_SEED = 0xC5
 
 # The card's peak int32 multiply-add rate: the published fp32 rate of an
 # H100 SXM (67 TFLOP/s = 2 flops per FMA lane-clock) halved for the
@@ -269,6 +304,44 @@ def scan_bound(bits):
     return bound_ms(doublings, adds, False, k * (2 * G1_POINT_BYTES + 4 * nbits))
 
 
+# The int8 tensor cores' dense rate: 1,979·10¹² operations/s, a
+# multiply-add counted as two (989·10¹² multiply-adds/s).
+PEAK_INT8_MAC_PER_S = 989e12
+# Multiply issue slots of one Fr multiply-add in fr_matmul's form: 8 × 8
+# partial products of 32 × 32 → 64 bits, both halves each.
+FR_MAC_SLOTS = 2 * 8 * 8
+# u8 limb products of one Fr multiply-add in a limb form on the int8
+# tensor cores: the operands are < 2^256, 32 bytes, so 32 × 32 products
+# (the reference's 33-limb form carries a 33rd limb that is 0 on these
+# inputs).
+FR_LIMB_MACS = 32 * 32
+
+
+def fr_bound_macs(macs: int, nbytes: int):
+    """The least time for ``macs`` Fr multiply-adds moving ``nbytes``: the
+    operations counted two ways, as the IMAD slots of the 32-bit word
+    form (the kernel's own arithmetic) and as the u8 products of the
+    32-limb form on the int8 tensor cores; the smaller of the two is the
+    card's least time for the work, the larger of that and the bytes the
+    bound.  Returns (bound ms, "operations" or "bytes", IMAD ms, tensor
+    ms).  Folds, carries and the final reduction are not counted."""
+    imad_ms = macs * FR_MAC_SLOTS / PEAK_IMAD_PER_S * 1e3
+    tc_ms = macs * FR_LIMB_MACS / PEAK_INT8_MAC_PER_S * 1e3
+    ops_ms = min(imad_ms, tc_ms)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", imad_ms, tc_ms
+    return bytes_ms, "bytes", imad_ms, tc_ms
+
+
+def fr_bound(m: int, k: int, p: int, acc: bool):
+    """``fr_bound_macs`` for one [m, k]·[k, p] product (+ acc): m·k·p
+    multiply-adds, each operand read once and the output written once,
+    32 bytes an element."""
+    nbytes = 32 * (m * k + k * p + m * p * (2 if acc else 1))
+    return fr_bound_macs(m * k * p, nbytes)
+
+
 def main() -> int:
     import torch
 
@@ -316,9 +389,10 @@ def main() -> int:
 
     rng = random.Random(SEED)
     max_err = {name: 0 for name in kernels.SOURCES}
-    # the scalar-mul kernels are held at canonical values, the ring byte for byte
+    # the scalar-mul kernels are held at canonical values, the ring byte
+    # for byte, fr_matmul's canonical words word for word
     compared = {"win_g1": "canonical", "win_g2": "canonical", "scan_g1": "canonical",
-                "ring_permute": "bytes"}
+                "ring_permute": "bytes", "fr_matmul": "words"}
 
     def record_err(name: str, got, plain, what: str) -> None:
         torch.cuda.synchronize()
@@ -748,14 +822,14 @@ def main() -> int:
     log(f"dkg perturbed row cell: fused check rejected on the card in {time.perf_counter() - t0} s")
 
     # win_g2 timed on the DKG's own fused-MSM points and scalars, whole;
-    # its plain version (about 0.6 ms a point) on the first K_TIME rows,
-    # beside the kernel on the same rows, and on the last K_CHECK rows
+    # its plain version (about 0.6 ms a point) on the first G2_PLAIN_ROWS
+    # rows, beside the kernel on the same rows, and on the last K_CHECK rows
     g2_wires, scalars, _ = dkg._fused_terms(deal.rows, deal.vals, deal.commit_wires, deal.n_ackers)
     arr = np.frombuffer(b"".join(g2_wires), dtype=np.uint8).reshape(-1, 192).copy()
     g2_pts = PM._wire_points_g2(torch.from_numpy(arr).to(dev))
     dig = digits_for(scalars, 32)
     got, dkg_g2_ms = timed(lambda: cuda_ec.win_g2(g2_pts, dig))
-    head, tail = slice(0, min(K_TIME, entries)), slice(entries - K_CHECK, entries)
+    head, tail = slice(0, min(G2_PLAIN_ROWS, entries)), slice(entries - K_CHECK, entries)
     record_err(
         "win_g2", got[tail], cuda_ec.windowed_g2_plain(g2_pts[tail], dig[tail]),
         f"at the DKG's K={entries}, rows {tail.start}..{tail.stop}",
@@ -905,6 +979,155 @@ def main() -> int:
         f"{K_CHECK} rows equal to the plain version at canonical values")
     del big_pts, big_dig, got
 
+    # -- 4c. the era change at N = 1024 ------------------------------------
+    from hbbft_tpu_torch.harness.dynamic import VectorizedDynamicSim
+    from hbbft_tpu_torch.ops import fr as FR
+    from hbbft_tpu_torch.protocols.change import Complete, Remove
+
+    def fr_tensor(vals, *shape):
+        """Ints < 2^256 as int32 words on the card, shaped ``shape + (8,)``."""
+        raw = b"".join(int(v).to_bytes(32, "little") for v in vals)
+        host = np.frombuffer(raw, dtype="<i4").reshape(*shape, FR.FR_WORDS).copy()
+        return torch.from_numpy(host).to(dev)
+
+    def fr_random(m, k, p):
+        return (fr_tensor([rng.randrange(F.R) for _ in range(m * k)], m, k),
+                fr_tensor([rng.randrange(F.R) for _ in range(k * p)], k, p),
+                fr_tensor([rng.randrange(F.R) for _ in range(m * p)], m, p))
+
+    def fr_compare(what, a, b, acc, want=None):
+        """The kernel against its plain version on the card, word for
+        word (max |Δ| over the words as unsigned 32-bit values); with
+        ``want``, against Python's (acc + Σ a·b) mod r too."""
+        got = FR.fr_matmul(a, b, acc)
+        plain = FR.fr_matmul_plain(a, b, acc)
+        torch.cuda.synchronize()
+        diff = (got.to(torch.int64) & 0xFFFFFFFF) - (plain.to(torch.int64) & 0xFFFFFFFF)
+        err = int(diff.abs().max().item()) if diff.numel() else 0
+        max_err["fr_matmul"] = max(max_err["fr_matmul"], err)
+        if err != 0:
+            fail(f"fr_matmul differs from its plain version {what} (max |Δ| {err})")
+        if want is not None and FR.words_to_fr(got) != want:
+            fail(f"fr_matmul {what} is not (acc + a·b) mod r")
+        log(f"fr_matmul {what}: equal to the plain version word for word")
+
+    N_CH = BIG_NODES - 1  # the new era's validators
+    T_CH = (N_CH - 1) // 3
+    TP1 = T_CH + 1
+    cuda_ec.reset_launches()
+    # (a) one dealer's three shapes of the N = 1023 dealing, with acc
+    for m, k, p, what in ((2 * T_CH + 1, TP1, TP1, "rows"), (TP1, TP1, N_CH, "values"),
+                          (1, TP1, N_CH, "lambda row")):
+        a, b, acc = fr_random(m, k, p)
+        fr_compare(f"{what} [{m}, {k}]·[{k}, {p}] + acc", a, b, acc)
+        if what == "values":
+            fr_val = (a, b, acc)
+    for value, name in ((F.R - 1, "r − 1"), ((1 << 256) - 1, "2^256 − 1")):
+        k = FR._MAX_K
+        fr_compare(f"all {name} at k = {k}", fr_tensor([value] * 3 * k, 3, k),
+                   fr_tensor([value] * k * 5, k, 5), fr_tensor([value] * 15, 3, 5),
+                   [(value + k * value * value) % F.R] * 15)
+    fr_compare("zeros [4, 5]·[5, 6]", fr_tensor([0] * 20, 4, 5), fr_tensor([0] * 30, 5, 6),
+               None, [0] * 24)
+    odd_a = [rng.randrange(F.R) for _ in range(35)]
+    odd_b = [rng.randrange(F.R) for _ in range(65)]
+    odd_want = [sum(odd_a[i * 5 + t] * odd_b[t * 13 + j] for t in range(5)) % F.R
+                for i in range(7) for j in range(13)]
+    fr_compare("odd [7, 5]·[5, 13]", fr_tensor(odd_a, 7, 5), fr_tensor(odd_b, 5, 13), None,
+               odd_want)
+    a, b, acc = fr_val
+    FR.fr_matmul(a, b, acc)  # warm-up
+    _, fr_ms = timed(lambda: FR.fr_matmul(a, b, acc), TIME_REPS)
+    _, fr_plain_ms = timed(lambda: FR.fr_matmul_plain(a, b, acc))
+    fr_b = fr_bound(TP1, TP1, N_CH, acc=True)
+    fr_check_launches = dict(cuda_ec.LAUNCHES)
+    log(f"fr_matmul [{TP1}, {TP1}]·[{TP1}, {N_CH}] + acc (one dealer's value grid): kernel "
+        f"{fr_ms} ms, plain {fr_plain_ms} ms, bound {fr_b[0]} ms ({fr_b[1]}; IMAD count "
+        f"{fr_b[2]} ms, int8 tensor-core count {fr_b[3]} ms)")
+    del a, b, acc, fr_val
+
+    # (b) the coeffs path: the device engine equals the host engine
+    coeff_nodes, coeff_t = 64, 21
+    coeffs = VectorizedDkg(range(coeff_nodes), coeff_t, random.Random(0xD0))._dealer_coeffs(
+        random.Random(0xC0FFEE))
+    cuda_ec.reset_launches()
+    t0 = time.perf_counter()
+    on_card = VectorizedDkg(range(coeff_nodes), coeff_t, random.Random(0xD0)).run(
+        verify_honest=False, coeffs=coeffs, engine="device")
+    coeffs_s = time.perf_counter() - t0
+    coeffs_launches = dict(cuda_ec.LAUNCHES)
+    on_host = VectorizedDkg(range(coeff_nodes), coeff_t, random.Random(0xD0)).run(
+        verify_honest=False, coeffs=coeffs, engine="host")
+    if (on_card.engine, on_host.engine) != ("device", "host") or coeffs_launches["fr_matmul"] < 1:
+        fail(f"coeffs DKG: engines {on_card.engine}/{on_host.engine}, launches {coeffs_launches}")
+    if on_card.pk_set.public_key().to_bytes() != on_host.pk_set.public_key().to_bytes():
+        fail("coeffs DKG: the device engine's public key differs from the host engine's")
+    if [c.to_bytes() for c in on_card.pk_set.commitment.coeffs] != [
+            c.to_bytes() for c in on_host.pk_set.commitment.coeffs]:
+        fail("coeffs DKG: the device engine's commitment differs from the host engine's")
+    if any(on_card.shares[i].scalar != on_host.shares[i].scalar for i in range(coeff_nodes)):
+        fail("coeffs DKG: a share of the device engine differs from the host engine's")
+    log(f"dkg N={coeff_nodes} t={coeff_t} coeffs path: device engine equal to the host engine "
+        f"(public key, commitment, {coeff_nodes} shares) in {coeffs_s} s, launches "
+        f"{coeffs_launches}")
+
+    # (c) the churn at bench_churn_1024's shape
+    cuda_ec.reset_launches()
+    t0 = time.perf_counter()
+    sim = VectorizedDynamicSim(BIG_NODES, random.Random(CHURN_SEED), mock=False,
+                               verify_honest=False, emit_minimal=True)
+    churn_setup_s = time.perf_counter() - t0
+    leaving = BIG_NODES - 1
+    for v in range((BIG_NODES - 1) // 3 + 1):
+        sim.vote_for(v, Remove(leaving))
+    first = {i: [b"c-%d" % i] for i in range(BIG_NODES)}
+    t0 = time.perf_counter()
+    r1 = sim.run_epoch(first)
+    era_switch_s = time.perf_counter() - t0
+    if r1.change != Complete(Remove(leaving)) or sim.era != 1 or leaving in sim.validators:
+        fail(f"churn: change {r1.change}, era {sim.era}, {len(sim.validators)} validators")
+    if r1.batch.contributions != first or not r1.fault_log.is_empty():
+        fail(f"churn: the era-switch epoch committed {len(r1.batch.contributions)} "
+             f"contributions, faults {r1.fault_log}")
+    out = sim.last_dkg
+    if out.engine != "device" or out.pk_set.threshold != T_CH:
+        fail(f"churn: DKG engine {out.engine}, threshold {out.pk_set.threshold}")
+    pk_set = sim.sim.pk_set
+    signers = range(T_CH + 1)
+    sig = pk_set.combine_signatures(
+        {i: sim.sim.netinfos[i].secret_key_share.sign(b"era 1") for i in signers})
+    if not pk_set.verify_signature(sig, b"era 1") or pk_set.verify_signature(sig, b"era 0"):
+        fail("churn: t + 1 signature shares of the new keys do not verify")
+    for i in sorted(rng.sample(range(N_CH), 16)):
+        if pk_set.commitment.evaluate(i + 1) != G2_GEN * out.shares[i].scalar:
+            fail(f"churn: node {i}'s public key share is not G2·share")
+    second = {i: [b"d-%d" % i] for i in sim.validators}
+    t0 = time.perf_counter()
+    r2 = sim.run_epoch(second)
+    next_epoch_s = time.perf_counter() - t0
+    churn_launches = dict(cuda_ec.LAUNCHES)
+    if r2.batch.contributions != second or r2.era != 1 or not r2.fault_log.is_empty():
+        fail(f"churn: the next epoch committed {len(r2.batch.contributions)} contributions")
+    if churn_launches["fr_matmul"] < 1 or any(v for k, v in churn_launches.items()
+                                             if k != "fr_matmul"):
+        fail(f"churn: launches {churn_launches}, not fr_matmul alone")
+    dealing_s = sim.last_switch_phases["dkg_dealing"]
+    deal_macs = N_CH * ((2 * T_CH + 1) * TP1 * TP1 + TP1 * TP1 * N_CH + TP1 * N_CH + TP1
+                        + 2 * TP1 * TP1)
+    deal_b = fr_bound_macs(deal_macs, 0)
+    log(f"churn N={BIG_NODES} → {N_CH} (Remove({leaving})): setup {churn_setup_s} s, era switch "
+        f"epoch {era_switch_s} s (DKG {sim.last_switch_phases['dkg']} s on the "
+        f"{out.engine} engine, t = {T_CH}), next epoch {next_epoch_s} s with {len(second)} "
+        f"contributions; launches {churn_launches}; new keys sign and verify, 16 public key "
+        f"shares equal G2·share")
+    log("churn last_switch_phases " + json.dumps(sim.last_switch_phases))
+    log("churn era-switch epoch phases " + json.dumps(r1.inner.phases))
+    log("churn next epoch phases " + json.dumps(r2.inner.phases))
+    log(f"churn dealing: {deal_macs} Fr multiply-adds in {dealing_s} s, bound "
+        f"{deal_b[0]} ms ({deal_b[1]}; IMAD count {deal_b[2]} ms, int8 tensor-core count "
+        f"{deal_b[3]} ms)")
+    del sim, r1, r2, out, pk_set
+
     # -- 5. scan_g1 through its entry point, then timed --------------------
     wires, pts = g1_points(K_TIME, 64)
     scalars = [rng.randrange(0, F.R) for _ in range(K_TIME)]
@@ -941,6 +1164,9 @@ def main() -> int:
         "scan_g1": {"scalar_mul_scan": scan_launches["scan_g1"]},
         "ring_permute": {"mesh_flush": mesh_launches["ring_permute"],
                          "epoch64_mesh": mesh64_launches["ring_permute"]},
+        "fr_matmul": {"fr_check": fr_check_launches["fr_matmul"],
+                      "dkg_coeffs": coeffs_launches["fr_matmul"],
+                      "churn1024": churn_launches["fr_matmul"]},
     }
 
     def row(name, replaces, launches, ms, plain_ms, bound, library_ms=None):
@@ -972,13 +1198,22 @@ def main() -> int:
             dict(
                 row("win_g2", "hbbft_tpu/ops/pallas_ec.py:283", dkg_launches["win_g2"],
                     win_g2_ms, win_g2_plain_ms, win_g2_bound),
-                # the DKG's whole fused MSM, beside its first K_TIME rows
+                # the DKG's whole fused MSM, beside its first G2_PLAIN_ROWS rows
                 dkg_k=entries, dkg_ms=dkg_g2_ms, dkg_bound_ms=dkg_g2_bound[0],
             ),
             row("scan_g1", "hbbft_tpu/ops/pallas_ec.py:291", scan_launches["scan_g1"],
                 scan_ms, scan_plain_ms, scan_b),
             row("ring_permute", "hbbft_tpu/ops/pallas_ec.py:882",
                 mesh64_launches["ring_permute"], ring_ms, ring_plain_ms, ring_b, ring_lib_ms),
+            dict(
+                # library_ms None: no PyTorch call computes an Fr product mod r
+                row("fr_matmul", "hbbft_tpu/ops/fr_jax.py:173", churn_launches["fr_matmul"],
+                    fr_ms, fr_plain_ms, fr_b),
+                replaces_kind="an XLA program (fr_jax._matmul_limbs), not a Pallas kernel",
+                shape=[TP1, TP1, N_CH], bound_imad_ms=fr_b[2], bound_int8_tc_ms=fr_b[3],
+                # the whole N = 1023 dealing of the churn's DKG
+                dealing_macs=deal_macs, dealing_s=dealing_s, dealing_bound_ms=deal_b[0],
+            ),
         ]
     }
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start} s")

@@ -15,12 +15,17 @@ own stream and card, the group partials ring-reduced by
 (``harness/epoch.py``: ``VectorizedHoneyBadgerSim``,
 ``VectorizedQueueingSim``) run over that flush: encryption, the
 reliable broadcast and the agreement on the host, every epoch's
-decryption shares and coin shares verified on the card.  The bit-serial
-G1 ladder (``csrc/scan_g1.cu``) lies on no production path.
+decryption shares and coin shares verified on the card.  The era
+change (``harness/dynamic.py``: ``VectorizedDynamicSim``,
+``VectorizedDynamicQueueingSim``) runs votes on-chain, a dealerless DKG
+whose clean elided dealing plane is the Fr matrix-product kernel
+``csrc/fr_matmul.cu`` (``ops/fr.py``), and the era restart.  The
+bit-serial G1 ladder (``csrc/scan_g1.cu``) lies on no production path.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``ops.backend_cuda.CudaBackend()``, ``harness.dkg.VectorizedDkg(...)``,
 ``harness.epoch.VectorizedHoneyBadgerSim(n, rng)``,
+``harness.dynamic.VectorizedDynamicSim(n, rng)``,
 ``core.network_info.NetworkInfo.generate_map(...)`` and
 ``parallel.mesh.make_mesh(n)`` mean ``torch.device("cuda")`` and raise
 when CUDA is absent;

@@ -6,7 +6,8 @@ the kinds the verified DKG and the vectorized HoneyBadger epoch
 attribute: invalid DKG Parts and Acks; in an epoch, invalid decryption
 and coin signature shares, invalid ciphertexts, undecryptable or
 undeserializable contributions, invalid Merkle proofs and broadcasts
-that cannot be reconstructed.  Names and texts are the reference's, so two
+that cannot be reconstructed; in the dynamic layer, votes with invalid
+signatures.  Names and texts are the reference's, so two
 logs compare by ``(node_id, kind.name)``.  The reference's trace
 telemetry is not carried over; faults are logged at DEBUG level.
 """
@@ -34,6 +35,7 @@ class FaultKind(enum.Enum):
     BROADCAST_DECODING_FAILED = "broadcast value could not be reconstructed"
     INVALID_PART = "committed an invalid DKG Part"
     INVALID_ACK = "committed an invalid DKG Ack"
+    INVALID_VOTE_SIGNATURE = "sent a vote with an invalid signature"
 
     def __repr__(self) -> str:
         return f"FaultKind.{self.name}"

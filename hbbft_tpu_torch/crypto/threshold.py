@@ -2,7 +2,8 @@
 
 The port's own copy of the subset of ``hbbft_tpu/crypto/threshold.py``
 that the share-verification flush, the verified DKG and the vectorized
-epoch need: individual keys and the hybrid encryption that makes
+epoch need: individual keys (and the signature check of the dynamic
+layer's signed votes) and the hybrid encryption that makes
 ciphertexts, secret/public key shares, signatures and signature and
 decryption shares, the ciphertext, the random-linear-combination batch
 verifier, the ``PublicKeySet`` with its share cache and its Lagrange
@@ -112,10 +113,14 @@ class Ciphertext:
 @dataclasses.dataclass(frozen=True)
 class PublicKey:
     """Individual public key; pk1 = sk·P₁ (encryption target),
-    pk2 = sk·P₂."""
+    pk2 = sk·P₂ (signature verification: a validator's signed votes)."""
 
     pk1: G1
     pk2: G2
+
+    def verify(self, sig: Signature, msg: bytes) -> bool:
+        h = hash_to_g1(msg, DST_SIG)
+        return pairing_check([(sig.point, G2_GEN), (-h, self.pk2)])
 
     def encrypt(self, msg: bytes, rng) -> Ciphertext:
         r = _rand_fr(rng)

@@ -31,22 +31,43 @@ participants advance through one synchronous DKG in array form.
 
 ``verify_honest=False`` elides the checks of honestly dealt cells and
 verifies only the adversarial injections, exactly (the reference's
-elided mode).  Not ported: mock crypto (``_run_mock``), the TPU's
-``fr_jax`` dealing plane (``_run_real_device``), and the obs spans; the
-port records stage walls in :attr:`VectorizedDkg.last_phases` instead.
+elided mode).
+
+**The device dealing plane** (:meth:`VectorizedDkg._run_real_device`,
+the counterpart of the reference's TPU engine over ``fr_jax``): the
+clean elided run — ``verify_honest=False`` and no adversarial cell —
+deals on ``device`` through ``ops/fr.py``'s ``fr_matmul``: per dealer
+``ROWS_d = POW[:2t+1]·C_d``, ``VAL_d = ROWS_d[:t+1]·POWᵀ``,
+``share_acc += λᵀ·VAL_d`` and ``row0_acc += C_d[0]``, every grid kept on
+the device in the kernel's word layout; only the two accumulators come
+back.  It is taken when ``run(engine="device")`` asks for it, or by
+default when ``device`` is a CUDA device; ``engine="host"`` forces the
+native path.  The reference's staging FIFO is not carried over (each
+dealer's ``coeffs`` are uploaded in turn), nor its int32 grid digest,
+which only kept XLA from eliminating the unread rows: eager launches
+compute every grid anyway.  Without ``coeffs`` the dealing matrices are
+sampled on the device.  ``mock=True`` runs the reference's mock dealing
+(``_run_mock``) and needs no device.
+
+Not ported: the obs spans (the port records stage walls in
+:attr:`VectorizedDkg.last_phases`) and the reference's
+``HBBFT_TPU_DKG_DEVICE`` switch (``engine=`` is the one switch).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 
 import numpy as np
+import torch
 
 from .. import native as NT
 from ..core.fault import FaultKind, FaultLog
 from ..crypto import fields as F
+from ..crypto import mock as M
 from ..crypto import threshold as T
 from ..crypto.curve import G1_GEN, G2_GEN
 from ..crypto.hashing import sha256
@@ -57,6 +78,7 @@ from ..crypto.poly import (
     lagrange_coefficients_at_zero,
 )
 from ..device import DeviceLike, resolve_device, stamp
+from ..ops import fr as FR
 from ..ops import packed_msm
 
 R = F.R
@@ -77,13 +99,14 @@ def _fr_ints(buf: np.ndarray) -> List[int]:
 class DkgResult:
     """Outcome of one co-simulated DKG session."""
 
-    pk_set: T.PublicKeySet
-    shares: Dict[Any, T.SecretKeyShare]  # node id → share
+    pk_set: Any  # T.PublicKeySet | M.MockPublicKeySet
+    shares: Dict[Any, Any]  # node id → share
     fault_log: FaultLog
     complete: List[Any]  # dealers whose parts completed (≥ 2t+1 acks)
     row_checks: int  # row-check cells settled
     value_checks: int  # value-check cells settled
     msm_points: int  # size of the single fused verification MSM
+    engine: str = "host"  # which engine ran the dealing plane
 
 
 class Dealing(NamedTuple):
@@ -100,8 +123,10 @@ class Dealing(NamedTuple):
 
 class VectorizedDkg:
     """One synchronous dealerless DKG over ``node_ids`` at threshold t,
-    with the fused verification MSM on ``device`` (``None`` = the card;
-    ``"cpu"`` runs the kernels' plain versions)."""
+    with the fused verification MSM and the clean dealing plane on
+    ``device`` (``None`` = the card; ``"cpu"`` runs the kernels' plain
+    versions).  ``mock`` runs the reference's mock dealing, on no
+    device."""
 
     # fused MSMs of at least this many commitment entries run on the
     # device, smaller ones on the native host (the reference's rule,
@@ -114,6 +139,7 @@ class VectorizedDkg:
         node_ids: Sequence[Any],
         threshold: int,
         rng,
+        mock: bool = False,
         device: DeviceLike = None,
     ):
         self.node_ids = sorted(node_ids)
@@ -122,7 +148,8 @@ class VectorizedDkg:
         if self.n < 2 * threshold + 1:
             raise ValueError("need at least 2t+1 nodes for completeness")
         self.rng = rng
-        self.device = resolve_device(device)
+        self.mock = mock
+        self.device = None if mock else resolve_device(device)
         self.last_phases: Dict[str, float] = {}
         self.last_dealing: Optional[Dealing] = None
 
@@ -155,6 +182,7 @@ class VectorizedDkg:
         wrong_row: Optional[Dict[Any, Set[Any]]] = None,
         wrong_value: Optional[Dict[Tuple[Any, Any], Set[Any]]] = None,
         coeffs: Optional[List] = None,
+        engine: Optional[str] = None,
     ) -> DkgResult:
         """Run the DKG to readiness and generation.
 
@@ -163,14 +191,136 @@ class VectorizedDkg:
         ``wrong_value``: (dealer, ack sender) → receivers given a
         corrupted value (INVALID_ACK on the sender; the receiver
         interpolates from other senders).  ``coeffs``: externally
-        supplied dealing matrices."""
+        supplied dealing matrices.  ``engine``: ``"device"`` or
+        ``"host"`` forces the dealing plane's engine for the clean
+        elided mode; the default is :meth:`_device_auto`.  Verified or
+        adversarial runs, and any run past :meth:`_device_capable`,
+        take the host engine whatever the hint (the reference's
+        routing).  Any other ``engine`` raises ValueError."""
+        if engine not in (None, "host", "device"):
+            raise ValueError(f"engine must be None, 'host' or 'device', not {engine!r}")
+        self.last_phases = {}
+        if self.mock:
+            return self._run_mock()
+        adversarial = bool(wrong_row or wrong_value)
+        if (
+            not verify_honest
+            and not adversarial
+            and engine != "host"
+            and (engine == "device" or self._device_auto())
+            and self._device_capable()
+        ):
+            return self._run_real_device(coeffs)
         if not NT.available():
             raise RuntimeError(
                 "the real-BLS DKG requires the native library "
                 "(hb_fr_matmul / hb_g2_mul_many)"
             )
-        self.last_phases = {}
         return self._run_real(verify_honest, wrong_row or {}, wrong_value or {}, coeffs)
+
+    def _device_auto(self) -> bool:
+        """The default route of the clean elided dealing: the device
+        engine exactly when the DKG's device is a card (there the
+        N = 1024 grids take seconds where the host takes hours); a CPU
+        device takes the host engine, and tests opt in with
+        ``engine="device"``."""
+        return self.device.type == "cuda"
+
+    def _device_capable(self) -> bool:
+        """The device engine's contractions (k = t + 1) stay within the
+        reference's bound ``_MAX_K``, as its routing requires; past it
+        both auto and explicit routing take the host engine."""
+        return self.t + 1 <= FR._MAX_K
+
+    # -- mock ----------------------------------------------------------------
+
+    def _run_mock(self) -> DkgResult:
+        """The reference's mock dealing: one 256-bit seed a node from the
+        rng, hashed into the group seed of a mock key set."""
+        seeds = [self.rng.randrange(2**256).to_bytes(32, "big") for _ in self.node_ids]
+        group = sha256(
+            b"DKGGROUP"
+            + b"".join(idx.to_bytes(4, "big") + seed for idx, seed in enumerate(seeds))
+        )
+        pk_set = M.MockPublicKeySet(group, self.t)
+        shares = {nid: M.MockSecretKeyShare(group, i) for i, nid in enumerate(self.node_ids)}
+        return DkgResult(pk_set, shares, FaultLog(), list(self.node_ids), 0, 0, 0)
+
+    # -- the device dealing plane (clean elided mode) --------------------------
+
+    def _words(self, vals: Sequence[int], *shape: int) -> torch.Tensor:
+        """Ints as canonical Fr words on the device, shaped ``shape + (8,)``."""
+        host = torch.from_numpy(FR.fr_to_words(vals)).reshape(*shape, FR.FR_WORDS)
+        return host.to(self.device)
+
+    def _run_real_device(self, coeffs) -> DkgResult:
+        """The clean elided DKG with the dealing plane on ``device``:
+        per dealer ``ROWS_d = POW[:2t+1]·C_d`` (all 2t + 1 rows, as the
+        protocol's data plane deals them), ``VAL_d = ROWS_d[:t+1]·POWᵀ``,
+        ``share_acc ← share_acc + λᵀ·VAL_d`` and
+        ``row0_acc ← row0_acc + C_d[0]``, each one ``fr_matmul`` on words
+        that stay on the device; the two accumulators come back once.
+
+        Without ``coeffs``, each dealer's symmetric matrix is sampled on
+        the device (48 random bytes a coefficient folded mod r,
+        statistical distance < 2^-129 from uniform; the upper triangle
+        mirrored, as the reference's ``step_sampled``) from a
+        ``torch.Generator`` seeded by eight ``getrandbits(32)`` of the
+        caller's rng — the reference's draws, so every later draw of a
+        dynamic run stays aligned with its device engine.  The
+        generator's state is 64 bits (a hash of the 256 drawn), as the
+        reference's threefry key is: sampled dealing is for benchmarks
+        and co-simulation; a deployment supplies host-drawn ``coeffs``.
+        With ``coeffs``, shares and public key equal the host engine's
+        (asserted in tests/test_torch_dkg.py)."""
+        n, t = self.n, self.t
+        tp1 = t + 1
+        n_ackers = min(n, 2 * t + 1)
+        n_valued = min(n, tp1)
+        dev = self.device
+        t0 = time.perf_counter()
+        pow_rows = self._pow_matrix()
+        POW = self._words([v for row in pow_rows[:n_ackers] for v in row], n_ackers, tp1)
+        POWT = self._words([pow_rows[r][j] for j in range(tp1) for r in range(n)], tp1, n)
+        LAM = self._words(lagrange_coefficients_at_zero(list(range(1, n_valued + 1))), 1, n_valued)
+        ONE = self._words([1], 1, 1)
+        share_acc = torch.zeros((1, n, FR.FR_WORDS), dtype=torch.int32, device=dev)
+        row0_acc = torch.zeros((1, tp1, FR.FR_WORDS), dtype=torch.int32, device=dev)
+        if coeffs is None:
+            draws = b"".join(self.rng.getrandbits(32).to_bytes(4, "big") for _ in range(8))
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int.from_bytes(hashlib.sha256(draws).digest()[:8], "big"))
+            idx = torch.arange(tp1, device=dev)
+            upper = (idx[:, None] <= idx)[..., None]  # [t+1, t+1, 1]: j ≤ k
+
+        for d in range(n):
+            if coeffs is None:
+                x = FR.sample_words(gen, tp1 * tp1).reshape(tp1, tp1, FR.FR_WORDS)
+                c_d = torch.where(upper, x, x.transpose(0, 1)).contiguous()
+            else:
+                c_d = self._words([c for row in coeffs[d] for c in row], tp1, tp1)
+            rows = FR.fr_matmul(POW, c_d)  # [2t+1, t+1]
+            vals = FR.fr_matmul(rows[:n_valued], POWT)  # [t+1, n]
+            share_acc = FR.fr_matmul(LAM, vals, share_acc)  # [1, n]
+            row0_acc = FR.fr_matmul(ONE, c_d[:1], row0_acc)  # [1, t+1]
+        share_vals = FR.words_to_fr(share_acc)
+        pk_scalars = FR.words_to_fr(row0_acc)
+        t0 = self._stamp("dealing", t0)
+
+        pk_commit = Commitment([G2_GEN * s for s in pk_scalars])
+        master_g1 = G1_GEN * pk_scalars[0]
+        shares = {nid: T.SecretKeyShare(share_vals[r]) for r, nid in enumerate(self.node_ids)}
+        self._stamp("generation", t0)
+        return DkgResult(
+            T.PublicKeySet(pk_commit, master_g1),
+            shares,
+            FaultLog(),
+            list(self.node_ids),
+            0,
+            0,
+            0,
+            engine="device",
+        )
 
     def _run_real(self, verify_honest, wrong_row, wrong_value, coeffs):
         n, t = self.n, self.t

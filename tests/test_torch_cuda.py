@@ -16,6 +16,10 @@ plain version byte for byte on a 4-shard mesh, whichever shard's stream
 runs late, and count one launch per sending card and round; the ring's
 copies must also move misaligned and odd-sized buffers in one launch; a
 small product flush over that mesh must give the host's point.
+``fr_matmul`` must equal its plain version word for word and Python's
+(acc + Σ a·b) mod r, on ragged shapes and the worst cases at k = 971,
+the bound it takes, and the clean elided DKG must take it by
+default on the card and deal the CPU run's keys.
 """
 
 import random
@@ -291,3 +295,57 @@ def test_mesh_product_flush_on_the_card(dev):
     # 3 rounds, one launch per sending card each
     assert cuda_ec.LAUNCHES["ring_permute"] == before["ring_permute"] + 3 * len(set(be.mesh.devices))
     assert got == CpuBackend().g1_msm_product_async(pts, s, t, sizes)()
+
+
+@pytest.mark.parametrize(
+    "m,k,p,value",
+    [(7, 5, 13, None), (1, 341, 40, None), (9, 971, 3, "r-1"), (2, 971, 33, "max256"), (1, 971, 2, "zero")],
+    ids=["odd", "lambda-row", "r-1-k971", "max256-k971", "zero-k971"],
+)
+def test_fr_matmul_kernel_matches_plain_and_bigint(dev, m, k, p, value):
+    """fr_matmul on the card: word for word its plain version on the card,
+    and Python's (acc + Σ a·b) mod r; one launch a call."""
+    from hbbft_tpu_torch.crypto import fields as F
+    from hbbft_tpu_torch.ops import cuda_ec, fr as FR
+
+    rng = random.Random(k)
+    full = {None: None, "r-1": F.R - 1, "max256": (1 << 256) - 1, "zero": 0}[value]
+
+    def draw(n):
+        return [rng.randrange(F.R) if full is None else full for _ in range(n)]
+
+    A, B, ACC = draw(m * k), draw(k * p), draw(m * p)
+
+    def words(vals, *shape):
+        raw = b"".join(v.to_bytes(32, "little") for v in vals)
+        return torch.from_numpy(np.frombuffer(raw, dtype="<i4").copy()).reshape(*shape, 8).to(dev)
+
+    a, b, acc = words(A, m, k), words(B, k, p), words(ACC, m, p)
+    before = cuda_ec.LAUNCHES["fr_matmul"]
+    got = FR.fr_matmul(a, b, acc)
+    torch.cuda.synchronize()
+    assert cuda_ec.LAUNCHES["fr_matmul"] == before + 1
+    assert torch.equal(got, FR.fr_matmul_plain(a, b, acc))
+    want = [
+        (ACC[i * p + j] + sum(A[i * k + t] * B[t * p + j] for t in range(k))) % F.R
+        for i in range(m)
+        for j in range(p)
+    ]
+    assert FR.words_to_fr(got) == want
+
+
+def test_dkg_device_engine_on_the_card_matches_cpu(dev):
+    """The clean elided DKG routes to the device engine on the card by
+    default and deals, with given coeffs, the CPU run's keys."""
+    from hbbft_tpu_torch.harness.dkg import VectorizedDkg
+    from hbbft_tpu_torch.ops import cuda_ec
+
+    coeffs = VectorizedDkg(range(10), 3, random.Random(6), device="cpu")._dealer_coeffs(random.Random(7))
+    cuda_ec.reset_launches()
+    card = VectorizedDkg(range(10), 3, random.Random(6)).run(verify_honest=False, coeffs=coeffs)
+    assert card.engine == "device" and cuda_ec.LAUNCHES["fr_matmul"] == 4 * 10
+    cpu = VectorizedDkg(range(10), 3, random.Random(6), device="cpu").run(
+        verify_honest=False, coeffs=coeffs, engine="device"
+    )
+    assert [card.shares[i].scalar for i in range(10)] == [cpu.shares[i].scalar for i in range(10)]
+    assert card.pk_set.public_key().to_bytes() == cpu.pk_set.public_key().to_bytes()

@@ -124,3 +124,112 @@ def test_fault_log_subset_names_match_reference():
 
     for kind in FaultKind:
         assert RefKind[kind.name].value == kind.value
+
+
+# ---------------------------------------------------------------------------
+# The device dealing plane (``fr_matmul``), mock dealing and routing
+# ---------------------------------------------------------------------------
+
+
+def _ref_device_engine(monkeypatch):
+    """The reference's device engine runs its grids through the
+    executable disk cache, whose loader does not run on this host's JAX;
+    plain ``jax.jit`` of the same programs stands in for it here."""
+    import jax
+
+    from hbbft_tpu.ops import pallas_ec
+
+    monkeypatch.setattr(
+        pallas_ec, "cached_compiled", lambda name, fn, *args, key_parts=None, donate=(): jax.jit(fn)(*args)
+    )
+
+
+def test_device_engine_with_coeffs_matches_reference_and_host(monkeypatch):
+    """The same dealing matrices through the port's device engine (the
+    plain versions of ``fr_matmul`` on a CPU device), the reference's
+    device engine and the port's host engine: identical keys."""
+    _ref_device_engine(monkeypatch)
+    n, t = 7, 2
+    coeffs = PD.VectorizedDkg(range(n), t, random.Random(0xD0), device="cpu")._dealer_coeffs(
+        random.Random(0xC0FFEE)
+    )
+    kw = dict(verify_honest=False, coeffs=coeffs)
+    ref = RefDkg(range(n), t, random.Random(0xD0), mock=False).run(engine="device", **kw)
+    dkg = PD.VectorizedDkg(range(n), t, random.Random(0xD0), device="cpu")
+    dev = dkg.run(engine="device", **kw)
+    host = PD.VectorizedDkg(range(n), t, random.Random(0xD0), device="cpu").run(engine="host", **kw)
+    assert ref.engine == dev.engine == "device" and host.engine == "host"
+    _assert_same(ref, dev)
+    _assert_same(host, dev)
+    assert dev.fault_log.is_empty() and set(dkg.last_phases) == {"dealing", "generation"}
+
+
+def test_device_engine_sampled_keys_work():
+    """Sampled on the device: a t + 1 subset's signature shares combine
+    into a signature the master key verifies, and every public key share
+    is G2·share."""
+    n, t = 7, 2
+    res = PD.VectorizedDkg(range(n), t, random.Random(0xD1), device="cpu").run(
+        verify_honest=False, engine="device"
+    )
+    assert res.engine == "device"
+    shares = {i: res.shares[i].sign(b"dev-dkg") for i in range(t + 1)}
+    sig = res.pk_set.combine_signatures(shares)
+    assert res.pk_set.verify_signature(sig, b"dev-dkg")
+    assert not res.pk_set.verify_signature(sig, b"other")
+    for i in range(n):
+        assert res.pk_set.public_key_share(i).point == PC.G2_GEN * res.shares[i].scalar
+    # the same rng seed deals the same keys
+    again = PD.VectorizedDkg(range(n), t, random.Random(0xD1), device="cpu").run(
+        verify_honest=False, engine="device"
+    )
+    assert [again.shares[i].scalar for i in range(n)] == [res.shares[i].scalar for i in range(n)]
+
+
+def test_device_engine_draws_what_the_reference_draws(monkeypatch):
+    """Sampling takes eight ``getrandbits(32)`` from the caller's rng, as
+    the reference's device engine does, so later draws stay aligned."""
+    _ref_device_engine(monkeypatch)
+    r_rng, p_rng = random.Random(0xD4), random.Random(0xD4)
+    RefDkg(range(4), 1, r_rng).run(verify_honest=False, engine="device")
+    PD.VectorizedDkg(range(4), 1, p_rng, device="cpu").run(verify_honest=False, engine="device")
+    assert p_rng.getrandbits(64) == r_rng.getrandbits(64)
+
+
+def test_routing(monkeypatch):
+    n, t = 4, 1
+
+    def mk(seed=0xD2):
+        return PD.VectorizedDkg(range(n), t, random.Random(seed), device="cpu")
+
+    # auto: the host engine on a CPU device, the device engine on a card
+    assert mk().run(verify_honest=False).engine == "host"
+    assert mk()._device_auto() is False
+    dkg = mk()
+    dkg.device = torch.device("cuda")
+    assert dkg._device_auto() is True
+    monkeypatch.setattr(PD.VectorizedDkg, "_device_auto", lambda self: True)
+    assert mk().run(verify_honest=False).engine == "device"
+    assert mk().run(verify_honest=False, engine="host").engine == "host"
+    # an engine that is neither raises, where it would have routed silently
+    for typo in ("cuda", "gpu", "Device"):
+        with pytest.raises(ValueError, match="engine"):
+            mk().run(verify_honest=False, engine=typo)
+    # verified or adversarial runs never take the device
+    assert mk().run(verify_honest=True, engine="device").engine == "host"
+    adv = mk().run(verify_honest=False, wrong_row={0: {1}}, engine="device")
+    assert adv.engine == "host"
+    # t + 1 past the contraction bound routes to the host engine
+    monkeypatch.setattr(PD.FR, "_MAX_K", 1)
+    assert mk().run(verify_honest=False, engine="device").engine == "host"
+
+
+def test_mock_run_matches_reference():
+    ref = RefDkg(range(7), 2, random.Random(0xA1), mock=True).run()
+    port = PD.VectorizedDkg(range(7), 2, random.Random(0xA1), mock=True).run()
+    assert port.pk_set.seed == ref.pk_set.seed and port.pk_set.threshold == ref.pk_set.threshold
+    assert [(s.seed, s.index) for s in port.shares.values()] == [
+        (s.seed, s.index) for s in ref.shares.values()
+    ]
+    assert port.complete == ref.complete and port.fault_log.is_empty()
+    assert (port.row_checks, port.value_checks, port.msm_points, port.engine) == (0, 0, 0, "host")
