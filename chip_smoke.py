@@ -7,8 +7,8 @@ In order, and with no phase's failure caught:
 
 1. **Build** — the native host library (``make -C native``) and every
    CUDA kernel of the port (``win_g1``, ``win_g2``, ``scan_g1``,
-   ``ring_permute``, ``fr_matmul``; one ``nvcc`` per source, all at
-   once), with
+   ``ring_permute``, and ``fr_matmul`` with ``fr_planes`` in one source;
+   one ``nvcc`` per source, all at once), with
    the build seconds and ``ptxas`` resource lines printed.
 2. **Kernels against their plain versions** — at K = 1000 (not a
    multiple of 128) on random r-torsion points with identity rows and
@@ -93,15 +93,24 @@ In order, and with no phase's failure caught:
    version (the whole shape would take the plain version about a
    minute).
 4c. **The era change at N = 1024** — (a) ``fr_matmul`` (the DKG's Fr
-   products, ``ops/fr.py``) against its plain version on the card, word
-   for word (max |Δ| 0 at canonical values): random entries at one
+   products, ``ops/fr.py``: the ``fr_planes`` kernel lays each operand
+   out as byte planes, the ``fr_matmul`` kernel multiplies them on the
+   int8 tensor cores) against its plain version on the card, word for
+   word (max |Δ| 0 at canonical values), and each operand's planes
+   against ``fr_planes_plain`` byte for byte: random entries at one
    dealer's three shapes of the N = 1023 dealing (``[681, 341]·[341,
    341]``, ``[341, 341]·[341, 1023]`` and ``[1, 341]·[341, 1023]``, each
    with ``acc``), every entry r − 1 and every entry 2^256 − 1 at
-   k = 971 (the bound ``fr_matmul`` takes), zeros and an odd
-   ``[7, 5]·[5, 13]``
-   (the worst cases, zeros and the odd one also against Python); then
-   timed at the value-grid shape beside its plain version.  (b) The
+   k = 971 (the bound ``fr_matmul`` takes), zeros, an odd
+   ``[7, 5]·[5, 13]`` (the worst cases, zeros and the odd one also
+   against Python), the tile's edges (m = 1, 2, 3 below a tile's 4 Fr
+   rows; k = 1, 31, 32, 33, 352 around the 32-byte k-step; p = 257, not
+   a multiple of a tile's 8 Fr columns) and ``sample_words``' fold
+   ``[1, 2]·[2, 116281]``; then timed at the value-grid shape beside
+   its plain version (the call, and the product kernel alone on the
+   planes, each on the card's own timeline and with its share of the
+   bound and of both counts), and ``fr_planes`` at the value grid's B
+   side beside its plain version.  (b) The
    ``coeffs`` path: ``VectorizedDkg(range(64), 21, Random(0xD0))`` with
    ``_dealer_coeffs(Random(0xC0FFEE))`` on ``engine="device"`` must equal
    ``engine="host"`` (public key, commitment, every share) and launch
@@ -127,16 +136,20 @@ In order, and with no phase's failure caught:
    epochs (``epoch1024``) each on its own; ``launches`` is the N = 1024
    epochs' for ``win_g1``, the mesh epochs' for ``ring_permute``, the
    DKG's for ``win_g2``, the entry point's for ``scan_g1`` and the
-   churn's (``churn1024``) for ``fr_matmul``, and ``launches_by_path``
-   lists every path's, ``fr_matmul``'s with ``fr_check`` and
-   ``dkg_coeffs``; ``win_g2``'s row is timed
+   churn's (``churn1024``) for ``fr_matmul`` and ``fr_planes``, and
+   ``launches_by_path`` lists every path's, ``fr_matmul``'s and
+   ``fr_planes``' with ``fr_check`` and ``dkg_coeffs``; ``win_g2``'s row
+   is timed
    on the DKG's first 16,384 rows and adds ``dkg_ms`` /
    ``dkg_bound_ms`` at its whole 236,672; ``win_g1``'s row is timed at
    the flush's 65,536 points and adds ``epoch_ms`` / ``epoch_bound_ms``
    at the N = 1024 epoch's 948,676; ``fr_matmul``'s is timed at the
-   value-grid shape, its bound the smaller of its IMAD count and the
-   limb form's int8 tensor-core count, and adds ``dealing_s`` /
-   ``dealing_bound_ms`` for the churn's whole N = 1023 dealing),
+   value-grid shape (its two ``fr_planes`` launches included; the
+   product kernel alone in ``product_ms``), its bound the smaller of the
+   word form's IMAD count and the limb form's int8 tensor-core count,
+   and adds ``dealing_s`` / ``dealing_bound_ms`` for the churn's whole
+   N = 1023 dealing; ``fr_planes``' is timed at the value grid's B side,
+   bound by its bytes),
    the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -184,6 +197,8 @@ BIG_NODES = 1024
 BIG_SEED = 0x1024
 BIG_DEAD = 50
 CHURN_SEED = 0xC5
+# fr_matmul / fr_planes launches timed on the card's timeline
+FR_REPS = 10
 
 # The card's peak int32 multiply-add rate: the published fp32 rate of an
 # H100 SXM (67 TFLOP/s = 2 flops per FMA lane-clock) halved for the
@@ -388,11 +403,12 @@ def main() -> int:
     from hbbft_tpu_torch.parallel.mesh import make_mesh
 
     rng = random.Random(SEED)
-    max_err = {name: 0 for name in kernels.SOURCES}
-    # the scalar-mul kernels are held at canonical values, the ring byte
-    # for byte, fr_matmul's canonical words word for word
+    max_err = {name: 0 for name in cuda_ec.LAUNCHES}
+    # the scalar-mul kernels are held at canonical values, the ring and
+    # fr_matmul's byte planes byte for byte, fr_matmul's canonical words
+    # word for word
     compared = {"win_g1": "canonical", "win_g2": "canonical", "scan_g1": "canonical",
-                "ring_permute": "bytes", "fr_matmul": "words"}
+                "ring_permute": "bytes", "fr_matmul": "words", "fr_planes": "bytes"}
 
     def record_err(name: str, got, plain, what: str) -> None:
         torch.cuda.synchronize()
@@ -997,10 +1013,14 @@ def main() -> int:
 
     def fr_compare(what, a, b, acc, want=None):
         """The kernel against its plain version on the card, word for
-        word (max |Δ| over the words as unsigned 32-bit values); with
+        word (max |Δ| over the words as unsigned 32-bit values), and its
+        operands' byte planes against theirs byte for byte; with
         ``want``, against Python's (acc + Σ a·b) mod r too."""
         got = FR.fr_matmul(a, b, acc)
         plain = FR.fr_matmul_plain(a, b, acc)
+        for x, a_side in ((a, True), (b, False)):
+            record_err("fr_planes", FR.fr_planes(x, a_side), FR.fr_planes_plain(x, a_side),
+                       f"{what} ({'a' if a_side else 'b'} side)")
         torch.cuda.synchronize()
         diff = (got.to(torch.int64) & 0xFFFFFFFF) - (plain.to(torch.int64) & 0xFFFFFFFF)
         err = int(diff.abs().max().item()) if diff.numel() else 0
@@ -1029,21 +1049,61 @@ def main() -> int:
                    [(value + k * value * value) % F.R] * 15)
     fr_compare("zeros [4, 5]·[5, 6]", fr_tensor([0] * 20, 4, 5), fr_tensor([0] * 30, 5, 6),
                None, [0] * 24)
+    # the tile's edges: fewer Fr rows than a tile's 4 (a warpgroup's 64
+    # plane rows are 2), contractions around the 32-byte k-step, Fr columns
+    # not a multiple of a tile's 8, and the sampler's fold
+    for m, k, p in ((1, 33, 9), (2, 31, 9), (3, 33, 17), (5, 1, 9), (6, 31, 10),
+                    (6, 32, 10), (6, 33, 10), (9, 352, 30), (9, 70, 257)):
+        a, b, acc = fr_random(m, k, p)
+        fr_compare(f"edge [{m}, {k}]·[{k}, {p}] + acc", a, b, acc)
+    halves = torch.randint(-2**31, 2**31 - 1, (2, TP1 * TP1, FR.FR_WORDS), dtype=torch.int32,
+                           device=dev)
+    halves[1, :, 4:] = 0
+    fr_compare(f"sampler [1, 2]·[2, {TP1 * TP1}]", fr_tensor(FR._SAMPLE_FOLD, 1, 2), halves, None)
+    del halves
     odd_a = [rng.randrange(F.R) for _ in range(35)]
     odd_b = [rng.randrange(F.R) for _ in range(65)]
     odd_want = [sum(odd_a[i * 5 + t] * odd_b[t * 13 + j] for t in range(5)) % F.R
                 for i in range(7) for j in range(13)]
     fr_compare("odd [7, 5]·[5, 13]", fr_tensor(odd_a, 7, 5), fr_tensor(odd_b, 5, 13), None,
                odd_want)
+    # the card's own time of a call (its three launches back to back,
+    # queued behind a sleep: the host's enqueue is not in it)
     a, b, acc = fr_val
     FR.fr_matmul(a, b, acc)  # warm-up
-    _, fr_ms = timed(lambda: FR.fr_matmul(a, b, acc), TIME_REPS)
+    fr_ms = device_timed(lambda: FR.fr_matmul(a, b, acc), FR_REPS)
     _, fr_plain_ms = timed(lambda: FR.fr_matmul_plain(a, b, acc))
     fr_b = fr_bound(TP1, TP1, N_CH, acc=True)
+    log(f"fr_matmul [{TP1}, {TP1}]·[{TP1}, {N_CH}] + acc (one dealer's value grid, its two "
+        f"fr_planes launches included): kernel {fr_ms} ms, plain {fr_plain_ms} ms, bound "
+        f"{fr_b[0]} ms ({fr_b[1]}; {fr_b[0] / fr_ms:.1%}); IMAD count {fr_b[2]} ms "
+        f"({fr_b[2] / fr_ms:.1%}), int8 tensor-core count {fr_b[3]} ms ({fr_b[3] / fr_ms:.1%})")
+    # the product kernel alone, on the two operands' planes
+    pa, pb, res = FR.fr_planes(a, True), FR.fr_planes(b, False), torch.empty_like(acc)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def product():
+        if FR._lib().fr_matmul_launch(pa.data_ptr(), pb.data_ptr(), acc.data_ptr(),
+                                      res.data_ptr(), TP1, TP1, N_CH, stream) != 0:
+            fail("fr_matmul_launch failed")
+
+    product()  # warm-up
+    product_ms = device_timed(product, FR_REPS)
+    if not torch.equal(res, FR.fr_matmul(a, b, acc)):
+        fail("fr_matmul's product kernel on the planes differs from the wrapper's result")
+    log(f"fr_matmul's product kernel alone at the value grid: {product_ms} ms "
+        f"({fr_b[0] / product_ms:.1%} of the bound; IMAD count {fr_b[2] / product_ms:.1%}, "
+        f"int8 tensor-core count {fr_b[3] / product_ms:.1%})")
+    del pa, pb, res
+    # fr_planes at the value grid's B side (POWᵀ, the larger operand)
+    FR.fr_planes(b, False)  # warm-up
+    planes_ms = device_timed(lambda: FR.fr_planes(b, False), FR_REPS)
+    _, planes_plain_ms = timed(lambda: FR.fr_planes_plain(b, False))
+    planes_bytes = b.numel() * 4 + FR.fr_planes_plain(b, False).numel()
+    planes_b = (planes_bytes / PEAK_BYTES_PER_S * 1e3, "bytes")
     fr_check_launches = dict(cuda_ec.LAUNCHES)
-    log(f"fr_matmul [{TP1}, {TP1}]·[{TP1}, {N_CH}] + acc (one dealer's value grid): kernel "
-        f"{fr_ms} ms, plain {fr_plain_ms} ms, bound {fr_b[0]} ms ({fr_b[1]}; IMAD count "
-        f"{fr_b[2]} ms, int8 tensor-core count {fr_b[3]} ms)")
+    log(f"fr_planes B side [{TP1}, {N_CH}] (the value grid's POWᵀ): kernel {planes_ms} ms, "
+        f"plain {planes_plain_ms} ms, bound {planes_b[0]} ms (bytes, {planes_bytes} B)")
     del a, b, acc, fr_val
 
     # (b) the coeffs path: the device engine equals the host engine
@@ -1108,9 +1168,10 @@ def main() -> int:
     churn_launches = dict(cuda_ec.LAUNCHES)
     if r2.batch.contributions != second or r2.era != 1 or not r2.fault_log.is_empty():
         fail(f"churn: the next epoch committed {len(r2.batch.contributions)} contributions")
-    if churn_launches["fr_matmul"] < 1 or any(v for k, v in churn_launches.items()
-                                             if k != "fr_matmul"):
-        fail(f"churn: launches {churn_launches}, not fr_matmul alone")
+    if (churn_launches["fr_matmul"] < 1
+            or churn_launches["fr_planes"] != 2 * churn_launches["fr_matmul"]
+            or any(v for k, v in churn_launches.items() if k not in ("fr_matmul", "fr_planes"))):
+        fail(f"churn: launches {churn_launches}, not fr_matmul with its two fr_planes alone")
     dealing_s = sim.last_switch_phases["dkg_dealing"]
     deal_macs = N_CH * ((2 * T_CH + 1) * TP1 * TP1 + TP1 * TP1 * N_CH + TP1 * N_CH + TP1
                         + 2 * TP1 * TP1)
@@ -1167,14 +1228,17 @@ def main() -> int:
         "fr_matmul": {"fr_check": fr_check_launches["fr_matmul"],
                       "dkg_coeffs": coeffs_launches["fr_matmul"],
                       "churn1024": churn_launches["fr_matmul"]},
+        "fr_planes": {"fr_check": fr_check_launches["fr_planes"],
+                      "dkg_coeffs": coeffs_launches["fr_planes"],
+                      "churn1024": churn_launches["fr_planes"]},
     }
 
-    def row(name, replaces, launches, ms, plain_ms, bound, library_ms=None):
+    def row(name, replaces, launches, ms, plain_ms, bound, library_ms=None, source=None):
         # library_ms None: no PyTorch call computes an EC scalar multiplication
         return {
             "name": name,
             "route": "cuda",
-            "source": f"hbbft_tpu_torch/csrc/{name}.cu",
+            "source": f"hbbft_tpu_torch/csrc/{source or name}.cu",
             "replaces": replaces,
             "launches": launches,
             "launches_by_path": by_path[name],
@@ -1211,8 +1275,20 @@ def main() -> int:
                     fr_ms, fr_plain_ms, fr_b),
                 replaces_kind="an XLA program (fr_jax._matmul_limbs), not a Pallas kernel",
                 shape=[TP1, TP1, N_CH], bound_imad_ms=fr_b[2], bound_int8_tc_ms=fr_b[3],
+                # ms is the wrapper's call (its two fr_planes launches included);
+                # product_ms the product kernel alone on the planes
+                product_ms=product_ms,
                 # the whole N = 1023 dealing of the churn's DKG
                 dealing_macs=deal_macs, dealing_s=dealing_s, dealing_bound_ms=deal_b[0],
+            ),
+            dict(
+                # library_ms None: the plain version is torch's zero padding and
+                # permuted copy, two calls; no one PyTorch call lays out the planes
+                row("fr_planes", "hbbft_tpu/ops/fr_jax.py:173", churn_launches["fr_planes"],
+                    planes_ms, planes_plain_ms, planes_b, source="fr_matmul"),
+                replaces_kind="the limb layout of an XLA program's dot_general "
+                              "(fr_jax._matmul_limbs), not a Pallas kernel",
+                shape=[TP1, N_CH],
             ),
         ]
     }

@@ -1,4 +1,5 @@
-// fr_matmul.cu — Fr matrix product mod r for Hopper: the DKG's dealing plane.
+// fr_matmul.cu — Fr matrix product mod r on Hopper's int8 tensor cores: the
+// DKG's dealing plane.
 //
 // Replaces no Pallas kernel: it replaces an XLA program of the reference,
 // hbbft_tpu/ops/fr_jax.py:_matmul_limbs (with _add_limbs, and the fold of
@@ -7,118 +8,450 @@
 // because at N = 1024 that program is the era change's entire compute:
 // per dealer ROWS = POW[:681]·C ([681, 341]·[341, 341]) and
 // VAL = ROWS[:341]·POWᵀ ([341, 341]·[341, 1023]), 1,023 dealers,
-// 2.0·10¹¹ Fr multiply-adds in all.  Its plain form would materialise a
-// [681·33, 341·33] int product per dealer.
+// 2.0·10¹¹ Fr multiply-adds in all.
 //
 //   out[m, p] = (acc[m, p] + Σ_k A[m, k]·B[k, p]) mod r
 //
-// A, B, acc: 8 little-endian 32-bit words an element (any value < 2^256),
-// out canonical.  The arithmetic and its exactness argument are in
-// fr_words.cuh: each thread keeps one output's exact sum (16 words + 8
-// carry counters), 64 partial products of 32 × 32 → 64 bits a multiply-add,
-// and reduces it once at the end.
+// A, B, acc: 32 little-endian bytes an element (any value < 2^256), out
+// canonical 8 × 32-bit words.  The kernel takes A and B as byte planes,
+// laid out by fr_planes_kernel below (ops/fr.py:fr_planes):
 //
-// What bounds it on the card: the multiplies.  A multiply-add is 64 partial
-// products, 128 IMAD issue slots (lo and hi halves), over 16.75·10¹² slots/s;
-// the bytes (32 B an operand, read once) are negligible.  The tensor cores
-// would do the limb form (33² u8 products a multiply-add at 989·10¹²/s)
-// about seven times faster; that redesign (mma/wgmma on u8 limbs with a
-// diagonal-sum epilogue) is later work, and chip_smoke.py reports the
-// smaller of the two counts as the bound.
+//   A'[(m, x), k] = byte x of A[m, k]    [32·M, K]
+//   B'[(p, y), k] = byte y of B[k, p]    [32·P, K]
 //
-// Design: a block of 32 × tm threads (tm = 8, or m when m < 8) computes a
-// tm × 32 output tile, one output a thread: warp y owns row m0 + y, lane x
-// column p0 + x.  The block stages KC = 16 steps of k at a time in shared
-// memory — A's tm rows as two uint4 halves (read by a whole warp at one
-// address: a broadcast) and B's 32 columns as two planes of uint4 (lane x
-// reads the x-th 16 bytes: conflict-free) — zero-filled past the edges,
-// so ragged tiles need no masks in the inner loop.  Only the final store
-// is masked.  Inputs are words, so rows → values → contribution stay on
-// the card; the layout conversion from the reference's 33-byte limbs is
-// torch on the card (ops/fr.py).
+// so that C' = A'·B'ᵀ is an ordinary u8 × u8 → s32 matrix product of
+// 1,024·M·K·P multiply-adds, and output (m, p) is the exact integer
+// acc + Σ_q S_q·2^(8q) with S_q = Σ_{x+y=q} C'[(m, x), (p, y)], the
+// diagonal sums of its 32 × 32 block.  fr_words.cuh has the arithmetic and
+// the exactness argument (every S_q < 2^31 at k ≤ 971: no s32 accumulator
+// or partial sum wraps), the conversion of the S_q into 17 words and the
+// one reduction mod r.
+//
+// What bounds it on the card: the tensor cores, 1,024 u8 products an Fr
+// multiply-add at 989·10¹² a second.  The planes are the words' bytes
+// transposed (padded to whole tiles), and each tile reads its blocks from
+// L2, which holds the dealing's operands; the reduction is a few hundred
+// integer instructions an output against an output's 11 k-steps of 1,024
+// products.  What holds it back (PERF.md): the loads from L2 and the
+// tensor cores run about even in the main loop, and the diagonal sums,
+// formed by the consumer warps between tiles, add about 40 % to it.
+//
+// Design.  A persistent block on every SM walks over output tiles of 4 Fr
+// rows × 8 Fr columns (a 128 × 256 tile of C'), K padded to a multiple of
+// 32 with zeros.  fr_planes_kernel writes each tile's planes in the order
+// the tensor cores read them (wgmma's K-major layout without swizzle: 8
+// rows × 16 bytes of k, 128 contiguous bytes, per core matrix), so one
+// k-step of a tile is one contiguous 4 KB block of A' and one of 8 KB of B',
+// and the padding of M, P and K is zeros there: the kernel reads no edge.
+// The warps split the work:
+//  - one producer thread (warp 8) copies each k-step's two blocks into a
+//    ring of STAGES stages with the bulk copy engine (cp.async.bulk, one
+//    mbarrier a stage counting the bytes), ahead of
+//  - two consumer warpgroups (warps 0-7), each issuing one
+//    wgmma.m64n256k32.s32.u8.u8 a k-step on its 64 plane rows (2 Fr rows)
+//    against the stage's 256 plane columns, accumulating in 128 s32
+//    registers a thread.  After a tile's last k-step each warp forms its
+//    diagonal sums.  Thread (g, t) = lane 4g + t of warp (warpgroup wg,
+//    ww = 2i + u) holds plane rows 16u + g + {0, 8} of Fr row 2wg + i and
+//    plane columns 8c + 2t + {0, 1} of every Fr column; the planes put
+//    bytes 4g + 2h + u of A and t + 8c + 4e of B there, so every register
+//    holds byte position lane + u + δ, δ = 8c + 2h + 4e fixed by the
+//    register.  Sixteen rotations (__shfl_sync from lane − δ mod 32) leave
+//    each lane the sums at its positions lane + u and lane + 32 + u, which
+//    it stores in a shared tile of sums; then
+//  - two reducer warps (warps 9, 10), one lane an output, add the two
+//    warps' sums of each position, convert the 63 S_q and acc into 17
+//    words and reduce them once (fr_words.cuh), and store canonical words,
+//    while the consumers run the next tile.  SBUF tiles of sums are in
+//    flight between them, again through mbarriers.
+// When M ≤ 2 (the λ row, the sampler's fold) the lower half of every A
+// tile would be padding: the tile pairs up instead, both warpgroups on A's
+// first 64 plane rows against two B tiles in alternate stages, 2 Fr rows
+// × 16 Fr columns a tile.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "fr_words.cuh"
 
 namespace {
 
-constexpr int TN = 32;      // output columns a block (one a lane)
-constexpr int TM_MAX = 8;   // output rows a block (one a warp)
-constexpr int KC = 16;      // k steps staged in shared memory at a time
+constexpr int TILE_FR_M = 4;                      // Fr rows a tile
+constexpr int TILE_FR_N = 8;                      // Fr columns a tile
+constexpr int TILE_OUTS = TILE_FR_M * TILE_FR_N;  // outputs a tile
+constexpr int BM = 32 * TILE_FR_M;                // plane rows a tile
+constexpr int BN = 32 * TILE_FR_N;                // plane columns a tile
+constexpr int BK = 32;                            // bytes of k a stage: one k-step
+constexpr int A_STAGE = BM * BK;                  // 4,096 bytes
+constexpr int B_STAGE = BN * BK;                  // 8,192 bytes
+constexpr int STAGES = 12;
+constexpr int SBUF = 2;                           // tiles of sums in flight
+constexpr int SPAD = TILE_OUTS + 1;               // a sum row, padded off the banks
+constexpr int S_HALF = 64 * SPAD;                 // one warp's 64 positions
+constexpr int ACC_REGS = BN / 2;                  // s32 accumulators a consumer thread
+constexpr int CONSUMER_WARPS = 8;
+constexpr int PRODUCER_WARP = CONSUMER_WARPS;
+constexpr int REDUCER_WARPS = 2;
+constexpr int THREADS = 32 * (CONSUMER_WARPS + 1 + REDUCER_WARPS);
 
-__global__ void __launch_bounds__(TN* TM_MAX)
-fr_matmul_kernel(const uint4* __restrict__ A, const uint4* __restrict__ B,
-                 const uint4* __restrict__ ACC, uint4* __restrict__ OUT, int M, int K, int P) {
-  __shared__ uint4 sa[KC][TM_MAX][2];
-  __shared__ uint4 sb[KC][2][TN];
-  const int tx = threadIdx.x, ty = threadIdx.y, tm = blockDim.y;
-  const int tid = ty * TN + tx, nthreads = tm * TN;
-  const int m0 = blockIdx.y * tm, p0 = blockIdx.x * TN;
-  const int m = m0 + ty, p = p0 + tx;
-  const bool live = m < M && p < P;
-  const size_t o = ((size_t)m * P + p) * 2;
+struct Smem {
+  uint8_t a[STAGES][A_STAGE];
+  uint8_t b[STAGES][B_STAGE];
+  uint32_t s[SBUF][2 * S_HALF];  // [u][position][output]
+  uint64_t full[STAGES], empty[STAGES], sfull[SBUF], sempty[SBUF];
+};
 
-  FrSum s;
-  if (ACC != nullptr && live) {
-    const uint4 lo = ACC[o], hi = ACC[o + 1];
-    const uint32_t acc[FR_W] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    fr_sum_init(s, acc);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, no swizzle: start address, the byte
+// offset between core matrices along k (leading) and along rows (stride)
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lead, uint32_t stride) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(stride >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// pins the accumulators in place across wgmma's asynchronous writes
+__device__ __forceinline__ void fence_acc(uint32_t (&d)[ACC_REGS]) {
+#pragma unroll
+  for (int i = 0; i < ACC_REGS; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (+)= A·Bᵀ on one k-step: A 64 plane rows, B 256 plane columns, 32 bytes of k
+__device__ __forceinline__ void wgmma_u8(uint32_t (&d)[ACC_REGS], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.u8.u8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+fr_matmul_kernel(const uint8_t* __restrict__ A, const uint8_t* __restrict__ B,
+                 const uint4* __restrict__ ACC, uint4* __restrict__ OUT, int M, int P, int KS,
+                 int NT, int tiles) {
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // Paired tiles when M ≤ 2 (a warpgroup's 64 plane rows hold 2 Fr rows):
+  // the warpgroups take the same A rows against two B tiles, each in its
+  // own stage (warpgroup w the w-th of each pair of stages), so that a
+  // block's tile holds 2 Fr rows × 16 Fr columns.  Otherwise a tile is 4 Fr
+  // rows × 8 Fr columns, both warpgroups on every stage.
+  const bool pair = M <= 2;
+  const int NTP = pair ? (NT + 1) / 2 : NT;  // tiles along P
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], pair ? CONSUMER_WARPS / 2 : CONSUMER_WARPS);
+    }
+    for (int s = 0; s < SBUF; ++s) {
+      mbar_init(&sm.sfull[s], 32 * CONSUMER_WARPS);
+      mbar_init(&sm.sempty[s], 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < CONSUMER_WARPS) {
+    // warpgroup wg: plane rows 64·wg.. of the tile, Fr rows 2·wg, 2·wg + 1;
+    // warp ww of it: Fr row i4, plane rows 16u..16u + 15 of that Fr row
+    const int wg = warp / 4, ww = warp % 4;
+    const int i4 = 2 * wg + (ww >> 1), u = ww & 1;
+    const int mine = pair ? wg : 0, step = pair ? 2 : 1;
+    uint32_t d[ACC_REGS];
+#pragma unroll
+    for (int i = 0; i < ACC_REGS; ++i) d[i] = 0u;
+    int stage = 0;
+    uint32_t phase = 0;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+      int prev = 0;
+      for (int ks = 0; ks < KS; ++ks) {
+        const int st = stage + mine;  // stage is even when paired
+        mbar_wait(&sm.full[st], phase);
+        // core matrices of a stage: [row / 8][k / 16], 128 bytes each
+        const uint64_t da = smem_desc(sm.a[st] + (pair ? 0 : wg * 64 * BK), 128, 256);
+        const uint64_t db = smem_desc(sm.b[st], 128, 256);
+        fence_acc(d);
+        wgmma_fence();
+        wgmma_u8(d, da, db, ks > 0);
+        wgmma_commit();
+        if (ks > 0) {
+          // the previous k-step is done with its stage
+          wgmma_wait<1>();
+          fence_acc(d);
+          if (lane == 0) mbar_arrive(&sm.empty[prev]);
+        }
+        prev = st;
+        if ((stage += step) == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(d);
+      if (lane == 0) mbar_arrive(&sm.empty[prev]);
+
+      // diagonal sums of this warp's 16 plane rows, Fr column by Fr column:
+      // register 16j + v of lane l holds byte position l + u + δ_v, so lane
+      // l gathers register v of lane l − δ_v (mod 32), its positions l + u
+      // and, where l < δ_v, l + 32 + u (hi)
+      const int sb = it % SBUF;
+      mbar_wait(&sm.sempty[sb], ((it / SBUF) & 1) ^ 1);
+      uint32_t* S = sm.s[sb] + u * S_HALF;
+      const int mt = tile / NTP, nt = tile % NTP;
+      const bool row_live = mt * TILE_FR_M + (pair ? i4 & 1 : i4) < M;
+      const int p0 = (pair ? 2 * nt + wg : nt) * TILE_FR_N;
+#pragma unroll
+      for (int j = 0; j < TILE_FR_N; ++j) {
+        if (row_live && p0 + j < P) {
+          uint32_t all = 0, hi = 0;
+#pragma unroll
+          for (int v = 0; v < 16; ++v) {
+            // register v = 4c + 2h + e: row g + 8h, column 8c + 2t + e of the
+            // Fr column's 32, byte 4g + 2h + u of A's element times byte
+            // t + 8c + 4e of B's (fr_planes): δ_v = 8c + 2h + 4e
+            const int delta = 8 * (v >> 2) + 2 * ((v >> 1) & 1) + 4 * (v & 1);
+            const int src = lane - delta;  // the shuffle takes it mod 32
+            const uint32_t x = __shfl_sync(0xffffffffu, d[16 * j + v], src);
+            all += x;
+            hi += x & (uint32_t)(src >> 31);
+          }
+          const int out = i4 * TILE_FR_N + j;
+          S[(lane + u) * SPAD + out] = all - hi;
+          if (lane < 30) S[(lane + 32 + u) * SPAD + out] = hi;
+        }
+      }
+      mbar_arrive(&sm.sfull[sb]);
+    }
+  } else if (warp == PRODUCER_WARP) {
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int mt = tile / NTP, nt = tile % NTP;
+        const uint8_t* a = A + (size_t)mt * KS * A_STAGE;
+        for (int ks = 0; ks < KS; ++ks) {
+          for (int w = 0; w < (pair ? 2 : 1); ++w) {
+            // a paired tile's second B tile may lie past P: its stage then
+            // keeps old bytes, and the reducers store none of its outputs
+            const int bt = pair ? 2 * nt + w : nt;
+            const uint32_t bytes = bt < NT ? A_STAGE + B_STAGE : A_STAGE;
+            mbar_wait(&sm.empty[stage], phase ^ 1);
+            mbar_expect_tx(&sm.full[stage], bytes);
+            bulk_load(sm.a[stage], a + (size_t)ks * A_STAGE, A_STAGE, &sm.full[stage]);
+            if (bt < NT) {
+              bulk_load(sm.b[stage], B + ((size_t)bt * KS + ks) * B_STAGE, B_STAGE,
+                        &sm.full[stage]);
+            }
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
   } else {
-    fr_sum_init(s, nullptr);
+    // reducer r takes the block's tiles r, r + REDUCER_WARPS, ...; lane =
+    // output 16·wg + 8·i + j: warpgroup wg's Fr row i, Fr column j
+    const int r = warp - PRODUCER_WARP - 1;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+      if (it % REDUCER_WARPS != r) continue;
+      const int sb = it % SBUF;
+      mbar_wait(&sm.sfull[sb], (it / SBUF) & 1);
+      const uint32_t* S = sm.s[sb];
+      // warp u = 0 wrote positions 0..61, u = 1 positions 1..62
+      uint32_t pos[FR_POS];
+#pragma unroll
+      for (int q = 0; q < FR_POS; ++q) {
+        pos[q] = (q <= 61 ? S[q * SPAD + lane] : 0u) +
+                 (q >= 1 && q <= 62 ? S[S_HALF + q * SPAD + lane] : 0u);
+      }
+      mbar_arrive(&sm.sempty[sb]);
+      const int mt = tile / NTP, nt = tile % NTP;
+      const int wg = lane >> 4, i = (lane >> 3) & 1;
+      const int m = mt * TILE_FR_M + (pair ? i : 2 * wg + i);
+      const int p = (pair ? 2 * nt + wg : nt) * TILE_FR_N + (lane & 7);
+      if (m < M && p < P) {
+        const size_t o = ((size_t)m * P + p) * 2;
+        FrSum s;
+        if (ACC != nullptr) {
+          const uint4 lo = ACC[o], hi = ACC[o + 1];
+          const uint32_t acc[FR_W] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+          fr_sum_positions(s, pos, acc);
+        } else {
+          fr_sum_positions(s, pos, nullptr);
+        }
+        uint32_t res[FR_W];
+        fr_sum_reduce(s, res);
+        OUT[o] = make_uint4(res[0], res[1], res[2], res[3]);
+        OUT[o + 1] = make_uint4(res[4], res[5], res[6], res[7]);
+      }
+    }
   }
+}
 
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    // A[m0 + r, k0 + kk] half h: consecutive threads along (kk, h)
-    for (int e = tid; e < tm * KC * 2; e += nthreads) {
-      const int h = e & 1, kk = (e >> 1) % KC, r = (e >> 1) / KC;
-      const int mm = m0 + r, k = k0 + kk;
-      sa[kk][r][h] = (mm < M && k < K) ? A[((size_t)mm * K + k) * 2 + h] : zero;
-    }
-    // B[k0 + kk, p0 + c] half h: consecutive threads along (c, h)
-    for (int e = tid; e < KC * TN * 2; e += nthreads) {
-      const int h = e & 1, c = (e >> 1) % TN, kk = (e >> 1) / TN;
-      const int pp = p0 + c, k = k0 + kk;
-      sb[kk][h][c] = (pp < P && k < K) ? B[((size_t)k * P + pp) * 2 + h] : zero;
-    }
-    __syncthreads();
-    const int kn = K - k0 < KC ? K - k0 : KC;
-#pragma unroll 1
-    for (int kk = 0; kk < kn; ++kk) {
-      const uint4 a0 = sa[kk][ty][0], a1 = sa[kk][ty][1];
-      const uint4 b0 = sb[kk][0][tx], b1 = sb[kk][1][tx];
-      const uint32_t a[FR_W] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const uint32_t b[FR_W] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-      fr_sum_mac(s, a, b);
-    }
-    __syncthreads();
+// Byte planes (ops/fr.py:fr_planes): one block a (tile, k-step) of FT Fr
+// elements, A's side (FT = 4) or B's (FT = 8), in wgmma's K-major
+// core-matrix order, one uint4 of output a thread.  The block
+// stages its 32 k × FT elements × 32 bytes in shared memory (coalesced
+// uint4 loads, zero past F and K) and gathers each output's 16 bytes of k.
+template <int FT, bool A_SIDE>
+__global__ void __launch_bounds__(FT * 64)
+fr_planes_kernel(const uint4* __restrict__ src, uint4* __restrict__ dst, int F, int K, int KS) {
+  __shared__ uint8_t st[BK][FT][32];  // [k][element][byte]
+  const int tile = blockIdx.x / KS, ks = blockIdx.x % KS;
+  const int tid = threadIdx.x, h = tid & 1;
+  // A's k steps of one element are adjacent in memory, B's elements of one k
+  const int f = A_SIDE ? (tid >> 1) / BK : (tid >> 1) % FT;
+  const int kk = A_SIDE ? (tid >> 1) % BK : (tid >> 1) / FT;
+  const int e = tile * FT + f, k = ks * BK + kk;
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (e < F && k < K) v = src[(A_SIDE ? (size_t)e * K + k : (size_t)k * F + e) * 2 + h];
+  *reinterpret_cast<uint4*>(&st[kk][f][16 * h]) = v;
+  __syncthreads();
+  // output uint4 tid: element ft, plane row n = 8·g8 + r8 of it, k // 16 = kc
+  const int r8 = tid & 7, kc = (tid >> 3) & 1, g8 = (tid >> 4) & 3, ft = tid >> 6;
+  const int n = 8 * g8 + r8;
+  // A's plane row n = 16u + 8h + g holds byte 4g + 2h + u, B's n = 8c + 2t + e
+  // byte t + 8c + 4e (the consumers' diagonal sums rely on both)
+  const int y = A_SIDE ? 4 * (n & 7) + 2 * ((n >> 3) & 1) + (n >> 4)
+                       : ((n >> 1) & 3) + 8 * (n >> 3) + 4 * (n & 1);
+  uint32_t w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int k0 = 16 * kc + 4 * q;
+    w[q] = (uint32_t)st[k0][ft][y] | (uint32_t)st[k0 + 1][ft][y] << 8 |
+           (uint32_t)st[k0 + 2][ft][y] << 16 | (uint32_t)st[k0 + 3][ft][y] << 24;
   }
-
-  if (live) {
-    uint32_t r[FR_W];
-    fr_sum_reduce(s, r);
-    OUT[o] = make_uint4(r[0], r[1], r[2], r[3]);
-    OUT[o + 1] = make_uint4(r[4], r[5], r[6], r[7]);
-  }
+  dst[(size_t)blockIdx.x * (FT * 64) + tid] = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 }  // namespace
 
 extern "C" {
 
-// a [M, K, 8], b [K, P, 8], acc [M, P, 8] (or null) and out [M, P, 8]
-// int32 words, contiguous on the current device (M ≤ 8·65535); launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// a, b: A's and B's byte planes (fr_planes_launch) for an [M, K]·[K, P]
+// product; acc [M, P, 8] int32 words (or null) and out [M, P, 8], contiguous
+// on the current device.  Launches one block an SM (at most one a tile) on
+// `stream` and returns the first CUDA error (0 on success).
 int fr_matmul_launch(const void* a, const void* b, const void* acc, void* out, int M, int K,
                      int P, void* stream) {
-  if (M > 0 && P > 0) {
-    const int tm = M < TM_MAX ? M : TM_MAX;
-    const dim3 block(TN, tm);
-    const dim3 grid((P + TN - 1) / TN, (M + tm - 1) / tm);
-    fr_matmul_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint4*>(a), static_cast<const uint4*>(b),
-        static_cast<const uint4*>(acc), static_cast<uint4*>(out), M, K, P);
+  if (M <= 0 || P <= 0) return 0;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fr_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(Smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int KS = (K + BK - 1) / BK > 0 ? (K + BK - 1) / BK : 1;
+  const int MT = (M + TILE_FR_M - 1) / TILE_FR_M, NT = (P + TILE_FR_N - 1) / TILE_FR_N;
+  const long long tiles = (long long)MT * (M <= 2 ? (NT + 1) / 2 : NT);
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);  // an int tile index
+  const int grid = tiles < sms ? (int)tiles : sms;
+  fr_matmul_kernel<<<grid, THREADS, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
+      static_cast<const uint4*>(acc), static_cast<uint4*>(out), M, P, KS, NT, (int)tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// src [F, K, 8] (A side: a's words) or [K, F, 8] (B side: b's words) int32,
+// contiguous on 16-byte boundaries; dst the planes, ⌈F/FT⌉ tiles × ⌈K/32⌉
+// (at least 1) steps × FT·1,024 bytes (FT = 4 for A, 8 for B).  Launches on
+// `stream`; returns cudaGetLastError() (0 on success).
+int fr_planes_launch(const void* src, void* dst, int F, int K, int a_side, void* stream) {
+  if (F <= 0) return 0;
+  const int KS = (K + BK - 1) / BK > 0 ? (K + BK - 1) / BK : 1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint4* s = static_cast<const uint4*>(src);
+  uint4* d = static_cast<uint4*>(dst);
+  const int ft = a_side ? TILE_FR_M : TILE_FR_N;
+  const long long blocks = (long long)((F + ft - 1) / ft) * KS;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  if (a_side) {
+    fr_planes_kernel<TILE_FR_M, true><<<(unsigned)blocks, TILE_FR_M * 64, 0, st>>>(s, d, F, K, KS);
+  } else {
+    fr_planes_kernel<TILE_FR_N, false><<<(unsigned)blocks, TILE_FR_N * 64, 0, st>>>(s, d, F, K, KS);
   }
   return static_cast<int>(cudaGetLastError());
 }

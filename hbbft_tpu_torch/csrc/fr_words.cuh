@@ -1,25 +1,43 @@
-// fr_words.cuh — exact sums of BLS12-381 Fr products in 32-bit words, and
-// their one reduction mod r: the arithmetic of fr_matmul.cu.
+// fr_words.cuh — exact sums of BLS12-381 Fr products, and their one
+// reduction mod r: the arithmetic of fr_matmul.cu.
 //
 // An Fr operand is 8 little-endian words of 32 bits, any value < 2^256
 // (canonical Fr, < r < 2^255, in the DKG; the sampler feeds 256-bit halves
-// of random bytes).  An output element holds the exact integer
+// of random bytes): its own 32 little-endian bytes.  An output element
+// holds the exact integer
 //
 //   T = acc + Σ_k a_k·b_k  <  2^256 + k·2^512
 //
 // and is reduced mod r once, at the end.  Nothing is reduced along the way,
 // so the order of the k terms does not matter: the sum is exact.
 //
+// The products come from the tensor cores as byte planes (fr_matmul.cu):
+// with a_k = Σ_x A_kx·2^(8x) and b_k = Σ_y B_ky·2^(8y), bytes A_kx, B_ky in
+// [0, 255], the u8 × u8 → s32 matrix product gives every
+//
+//   C_xy = Σ_k A_kx·B_ky  ≤  255²·k,
+//
+// and T = acc + Σ_{p=0..62} S_p·2^(8p) with the diagonal sums
+// S_p = Σ_{x+y=p} C_xy, at most 32 terms each:
+//
+//   S_p ≤ 32·255²·k = 2,080,800·k.
+//
+// The wrapper (ops/fr.py) takes k ≤ 971, the reference's bound, so
+// S_p ≤ 2,020,456,800 < 2^31: no s32 accumulator, no partial diagonal sum
+// and no S_p wraps (every term is ≥ 0, every partial sum ≤ S_p).  At
+// k = 1,033 the bound would pass 2^31; tests/test_torch_fr.py holds it at
+// k = 971 with every byte 0xFF.
+//
+// fr_sum_positions turns the S_p and acc into T's 17 words by 64-bit
+// columns: word t collects acc_t, the carry from word t − 1 and
+// S_{4t+d}·2^(8d) for d = 0..3, a column < 2^24 + 2^32 + 2^31·(2^24 + 2^16 +
+// 2^8 + 1) < 2^56, so every carry is < 2^24 and nothing overflows 64 bits.
+// Word 16 (< 2^10 at k ≤ 971) is the last carry.
+//
 // The sum (FrSum) is 16 words w[0..15] plus 8 carry counters c[0..7], c[j]
-// weighing 2^(32(9+j)).  One multiply-add (fr_sum_mac) runs the 8 × 8
-// schoolbook by rows: row i adds a_i·b into w[i..i+8] with 64-bit partial
-// steps t = a_i·b_j + w + carry, which cannot overflow ((2^32 − 1)² +
-// 2(2^32 − 1) = 2^64 − 1), leaving a carry word < 2^32 for w[i+8]; that
-// addition's own carry (0 or 1) is counted in c[i] instead of rippling up.
-// 64 partial products and 8 counted carries a multiply-add; each counter
-// grows by at most 1 a multiply-add, so it holds k < 2^32 terms, and T
-// fits the 17 words it is normalized into for k < 2^32 (the wrapper in
-// fr.py takes k ≤ 971, the reference's bound, far inside both).
+// weighing 2^(32(9+j)); fr_sum_positions fills w and c[7] (word 16) and
+// zeroes c[0..6].  The reduction takes any counters, as their sum with the
+// words fits 17 words.
 //
 // The reduction (fr_sum_reduce):
 //  1. normalize: x[0..16] = T, the counters added in by one carry chain;
@@ -45,6 +63,8 @@
 namespace {
 
 constexpr int FR_W = 8;
+// byte positions of a product of two 32-byte operands (0..62), and one spare
+constexpr int FR_POS = 64;
 
 // r, little-endian words
 __constant__ uint32_t FR_R[FR_W] = {
@@ -88,30 +108,22 @@ struct FrSum {
   uint32_t c[8];   // c[j]: carries into word 9 + j
 };
 
-// T = acc (8 words; nullptr for 0)
-__device__ __forceinline__ void fr_sum_init(FrSum& s, const uint32_t* acc) {
+// T = acc + Σ_p S[p]·2^(8p) (acc: 8 words, nullptr for 0; every S[p] < 2^31,
+// S[63] included, which the kernel leaves 0): w = words 0..15, c[7] = word 16
+__device__ __forceinline__ void fr_sum_positions(FrSum& s, const uint32_t (&S)[FR_POS],
+                                                 const uint32_t* acc) {
+  uint64_t carry = 0;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) s.w[i] = (acc != nullptr && i < FR_W) ? acc[i] : 0u;
+  for (int t = 0; t < 16; ++t) {
+    uint64_t col = carry + ((acc != nullptr && t < FR_W) ? acc[t] : 0u);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) s.c[j] = 0u;
-}
-
-// T += a·b
-__device__ __forceinline__ void fr_sum_mac(FrSum& s, const uint32_t (&a)[FR_W],
-                                           const uint32_t (&b)[FR_W]) {
-#pragma unroll
-  for (int i = 0; i < FR_W; ++i) {
-    uint64_t carry = 0;
-#pragma unroll
-    for (int j = 0; j < FR_W; ++j) {
-      const uint64_t t = (uint64_t)a[i] * b[j] + s.w[i + j] + carry;
-      s.w[i + j] = (uint32_t)t;
-      carry = t >> 32;
-    }
-    const uint64_t t = (uint64_t)s.w[i + FR_W] + carry;
-    s.w[i + FR_W] = (uint32_t)t;
-    s.c[i] += (uint32_t)(t >> 32);
+    for (int d = 0; d < 4; ++d) col += (uint64_t)S[4 * t + d] << (8 * d);
+    s.w[t] = (uint32_t)col;
+    carry = col >> 32;
   }
+#pragma unroll
+  for (int j = 0; j < 7; ++j) s.c[j] = 0u;
+  s.c[7] = (uint32_t)carry;
 }
 
 // out = T mod r, canonical

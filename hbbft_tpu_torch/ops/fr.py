@@ -22,13 +22,16 @@ one host core.  This module holds two layouts:
   in an int32 tensor ``[..., 8]`` (``FR_WORDS``).  :func:`fr_matmul`
   takes any words (values < 2^256; canonical Fr in practice) and
   returns canonical words: ``(acc + a·b) mod r``.  On a CUDA tensor it
-  launches the hand-written kernel ``csrc/fr_matmul.cu`` (exact 17-word
-  sums of 32-bit partial products, one reduction mod r at the end) or
-  raises; on a CPU tensor it runs the plain version
+  lays the operands out as byte planes (:func:`fr_planes`, the
+  ``fr_planes`` kernel) and launches the hand-written kernel
+  ``csrc/fr_matmul.cu`` (the planes' u8 product on the int8 tensor
+  cores, diagonal sums into exact 17-word sums, one reduction mod r at the
+  end) or raises; on a CPU tensor it runs the plain version
   :func:`fr_matmul_plain` (the reference's limb programs, then a
-  canonical reduction).  ``cuda_ec.LAUNCHES["fr_matmul"]`` counts the
-  kernel's launches and nothing else.  Converters between the two
-  layouts run in torch on the tensor's device.
+  canonical reduction).  ``cuda_ec.LAUNCHES["fr_matmul"]`` and
+  ``["fr_planes"]`` count the kernels' launches and nothing else.
+  Converters between the two layouts run in torch on the tensor's
+  device.
 
 The host converters ``fr_to_limbs`` … ``limbs_to_be32`` are the
 reference's, on numpy.
@@ -52,10 +55,11 @@ FR_LIMBS = 33  # 8-bit limbs; values < 2^264, congruent mod r
 # (its carry sweep adds the running carry to a digit before the shift)
 _MAX_K = 971
 # The kernel's layout: 8 × 32-bit little-endian words.  ``fr_matmul``
-# takes k ≤ _MAX_K, far inside both its forms' own bounds: the kernel's
-# sum, 16 words plus 8 carry counters (csrc/fr_words.cuh), is exact for
-# k < 2^31 on any 256-bit inputs, and the plain version's four spare
-# carry digits hold while the carry, ≤ 255²·k·33/255, stays below 2^32.
+# takes k ≤ _MAX_K, inside both its forms' own bounds: the kernel's
+# diagonal sums of byte products (csrc/fr_words.cuh), at most 32·255²·k,
+# stay below 2^31 for k ≤ 1,032 on any 256-bit inputs, and the plain
+# version's four spare carry digits hold while the carry,
+# ≤ 255²·k·33/255, stays below 2^32.
 FR_WORDS = 8
 
 
@@ -291,20 +295,104 @@ def fr_matmul_plain(
     return limbs_to_words(out)
 
 
+_LIB: Optional[ctypes.CDLL] = None
+
+
 def _lib() -> ctypes.CDLL:
-    lib = kernels.load("fr_matmul")
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    lib.fr_matmul_launch.argtypes = [p, p, p, p, i, i, i, p]
-    lib.fr_matmul_launch.restype = ctypes.c_int
-    lib.fr_matmul_error_string.argtypes = [ctypes.c_int]
-    lib.fr_matmul_error_string.restype = ctypes.c_char_p
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib = kernels.load("fr_matmul")
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.fr_matmul_launch.argtypes = [p, p, p, p, i, i, i, p]
+        lib.fr_matmul_launch.restype = ctypes.c_int
+        lib.fr_planes_launch.argtypes = [p, p, i, i, i, p]
+        lib.fr_planes_launch.restype = ctypes.c_int
+        lib.fr_matmul_error_string.argtypes = [ctypes.c_int]
+        lib.fr_matmul_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
 
 
-# the kernel's grid: 8 output rows a block (csrc/fr_matmul.cu's TM), at
-# most 65,535 blocks down the rows
-_MAX_M = 8 * 65535
+# The kernel's output tile (csrc/fr_matmul.cu): 4 Fr rows × 8 Fr columns,
+# k in steps of 32
+TILE_FR_M, TILE_FR_N, K_STEP = 4, 8, 32
+
+
+def _k_steps(k: int) -> int:
+    return max(1, -(-k // K_STEP))
+
+
+def fr_planes_plain(x: torch.Tensor, a_side: bool) -> torch.Tensor:
+    """The plain PyTorch version of ``fr_planes``: zero padding, then one
+    permuted copy of the words' bytes."""
+    if a_side:
+        m, k = x.shape[:2]
+        mt, ks = -(-m // TILE_FR_M), _k_steps(k)
+        y = torch.nn.functional.pad(
+            x.contiguous().view(torch.uint8), (0, 0, 0, ks * K_STEP - k, 0, mt * TILE_FR_M - m))
+        # [tile, i % 4, step, k // 16 % 2, k % 16, g, h, u] (x = 4g + 2h + u)
+        # → the block order [tile, step, i % 4, u, h, k // 16 % 2, g, k % 16]
+        y = y.view(mt, TILE_FR_M, ks, 2, 16, 8, 2, 2).permute(0, 2, 1, 7, 6, 3, 5, 4)
+        return y.reshape(mt, ks, TILE_FR_M * 32 * K_STEP)
+    k, p = x.shape[:2]
+    nt, ks = -(-p // TILE_FR_N), _k_steps(k)
+    y = torch.nn.functional.pad(
+        x.contiguous().view(torch.uint8), (0, 0, 0, nt * TILE_FR_N - p, 0, ks * K_STEP - k))
+    # [step, k // 16 % 2, k % 16, tile, j % 8, c, e, t] (y = 8c + 4e + t)
+    # → the block order [tile, step, j % 8, c, k // 16 % 2, t, e, k % 16]
+    y = y.view(ks, 2, 16, nt, TILE_FR_N, 4, 2, 4).permute(3, 0, 4, 5, 1, 7, 6, 2)
+    return y.reshape(nt, ks, TILE_FR_N * 32 * K_STEP)
+
+
+def fr_planes(x: torch.Tensor, a_side: bool) -> torch.Tensor:
+    """The byte planes the ``fr_matmul`` kernel reads, the wrapper of the
+    ``fr_planes`` kernel (``csrc/fr_matmul.cu``).
+
+    A side (``x`` = a, [m, k, 8] int32 words): [⌈m/4⌉, ⌈k/32⌉, 4096] u8.
+    Fr row i's 32 plane rows hold its bytes x = 4g + 2h + u at plane row
+    16u + 8h + g; block (tile, k-step) is 4 Fr rows × 32 bytes of k in
+    wgmma's K-major core-matrix order
+    ``[i % 4, u, h, k // 16 % 2, g, k % 16]``.
+
+    B side (``x`` = b, [k, p, 8]): [⌈p/8⌉, ⌈k/32⌉, 8192] u8.  Fr column
+    j's 32 plane rows hold its bytes y = t + 8c + 4e at plane row
+    8c + 2t + e; block (tile, k-step) is 8 Fr columns × 32 bytes of k in
+    the order ``[j % 8, c, k // 16 % 2, t, e, k % 16]``.
+
+    With both orders, lane l = 4g + t of a warp holds, in every register,
+    the product of byte positions l + u + δ, δ fixed by the register: one
+    lane, one offset (csrc/fr_matmul.cu's diagonal sums).
+
+    Zero past m (or p) and k; at least one k-step.  A CUDA tensor
+    (contiguous, on a 16-byte boundary) launches the kernel on the current
+    stream; a CPU tensor runs :func:`fr_planes_plain`."""
+    if x.device.type == "cpu":
+        return fr_planes_plain(x, a_side)
+    if x.device.type != "cuda":
+        raise ValueError(f"fr_planes runs on cuda or cpu tensors, not {x.device}")
+    if x.dtype != torch.int32 or x.dim() != 3 or x.shape[2] != FR_WORDS:
+        raise ValueError(f"fr_planes takes [.., .., 8] int32 words, got {tuple(x.shape)}")
+    if not x.is_contiguous() or x.data_ptr() % 16 != 0:
+        raise ValueError("fr_planes takes a contiguous tensor on a 16-byte boundary")
+    with torch.cuda.device(x.device):
+        return _launch_planes(_lib(), x, a_side, torch.cuda.current_stream().cuda_stream)
+
+
+def _launch_planes(lib: ctypes.CDLL, x: torch.Tensor, a_side: bool, stream: int) -> torch.Tensor:
+    """``fr_planes``' launch on a checked CUDA tensor, on the current device."""
+    f, k = (x.shape[0], x.shape[1]) if a_side else (x.shape[1], x.shape[0])
+    ft = TILE_FR_M if a_side else TILE_FR_N
+    out = torch.empty((-(-f // ft), _k_steps(k), ft * 32 * K_STEP), dtype=torch.uint8,
+                      device=x.device)
+    if f == 0:
+        return out
+    rc = lib.fr_planes_launch(x.data_ptr(), out.data_ptr(), f, k, int(a_side), stream)
+    if rc != 0:
+        msg = lib.fr_matmul_error_string(rc).decode()
+        raise RuntimeError(f"fr_planes launch failed: {msg} ({rc})")
+    LAUNCHES["fr_planes"] += 1
+    return out
 
 
 def fr_matmul(a: torch.Tensor, b: torch.Tensor, acc: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -336,16 +424,16 @@ def fr_matmul(a: torch.Tensor, b: torch.Tensor, acc: Optional[torch.Tensor] = No
         raise ValueError(f"fr_matmul runs on cuda or cpu tensors, not {a.device}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in operands):
         raise ValueError("fr_matmul takes contiguous tensors on 16-byte boundaries")
-    if m > _MAX_M:
-        raise ValueError(f"fr_matmul takes at most {_MAX_M} rows, got {m}")
     out = torch.empty((m, p, FR_WORDS), dtype=torch.int32, device=a.device)
     if m == 0 or p == 0:
         return out
     lib = _lib()
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
+        stream = torch.cuda.current_stream().cuda_stream
+        planes_a = _launch_planes(lib, a, True, stream)
+        planes_b = _launch_planes(lib, b, False, stream)
         rc = lib.fr_matmul_launch(
-            a.data_ptr(), b.data_ptr(), None if acc is None else acc.data_ptr(),
+            planes_a.data_ptr(), planes_b.data_ptr(), None if acc is None else acc.data_ptr(),
             out.data_ptr(), m, k, p, stream,
         )
     if rc != 0:

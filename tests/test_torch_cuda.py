@@ -17,9 +17,11 @@ runs late, and count one launch per sending card and round; the ring's
 copies must also move misaligned and odd-sized buffers in one launch; a
 small product flush over that mesh must give the host's point.
 ``fr_matmul`` must equal its plain version word for word and Python's
-(acc + Σ a·b) mod r, on ragged shapes and the worst cases at k = 971,
-the bound it takes, and the clean elided DKG must take it by
-default on the card and deal the CPU run's keys.
+(acc + Σ a·b) mod r, on ragged shapes (paired tiles at m ≤ 2 among them)
+and the worst cases at k = 971, the bound it takes, with one ``fr_matmul``
+and two ``fr_planes`` launches a call; ``fr_planes`` must equal its plain
+version byte for byte; and the clean elided DKG must take it by default
+on the card and deal the CPU run's keys.
 """
 
 import random
@@ -299,8 +301,9 @@ def test_mesh_product_flush_on_the_card(dev):
 
 @pytest.mark.parametrize(
     "m,k,p,value",
-    [(7, 5, 13, None), (1, 341, 40, None), (9, 971, 3, "r-1"), (2, 971, 33, "max256"), (1, 971, 2, "zero")],
-    ids=["odd", "lambda-row", "r-1-k971", "max256-k971", "zero-k971"],
+    [(7, 5, 13, None), (1, 341, 40, None), (9, 971, 3, "r-1"), (2, 971, 33, "max256"), (1, 971, 2, "zero"),
+     (2, 33, 25, None), (3, 352, 17, None)],
+    ids=["odd", "lambda-row", "r-1-k971", "max256-k971", "zero-k971", "paired", "k352"],
 )
 def test_fr_matmul_kernel_matches_plain_and_bigint(dev, m, k, p, value):
     """fr_matmul on the card: word for word its plain version on the card,
@@ -321,10 +324,11 @@ def test_fr_matmul_kernel_matches_plain_and_bigint(dev, m, k, p, value):
         return torch.from_numpy(np.frombuffer(raw, dtype="<i4").copy()).reshape(*shape, 8).to(dev)
 
     a, b, acc = words(A, m, k), words(B, k, p), words(ACC, m, p)
-    before = cuda_ec.LAUNCHES["fr_matmul"]
+    before = dict(cuda_ec.LAUNCHES)
     got = FR.fr_matmul(a, b, acc)
     torch.cuda.synchronize()
-    assert cuda_ec.LAUNCHES["fr_matmul"] == before + 1
+    assert cuda_ec.LAUNCHES["fr_matmul"] == before["fr_matmul"] + 1
+    assert cuda_ec.LAUNCHES["fr_planes"] == before["fr_planes"] + 2
     assert torch.equal(got, FR.fr_matmul_plain(a, b, acc))
     want = [
         (ACC[i * p + j] + sum(A[i * k + t] * B[t * p + j] for t in range(k))) % F.R
@@ -332,6 +336,21 @@ def test_fr_matmul_kernel_matches_plain_and_bigint(dev, m, k, p, value):
         for j in range(p)
     ]
     assert FR.words_to_fr(got) == want
+
+
+@pytest.mark.parametrize("m,k,p", [(5, 37, 11), (1, 2, 1000), (341, 341, 1023)],
+                         ids=["ragged", "sampler", "values"])
+def test_fr_planes_kernel_matches_plain(dev, m, k, p):
+    """fr_planes on the card: byte for byte its plain version, both sides."""
+    from hbbft_tpu_torch.ops import fr as FR
+
+    g = torch.Generator(device=dev).manual_seed(m * k + p)
+    a = torch.randint(-2**31, 2**31 - 1, (m, k, 8), dtype=torch.int32, device=dev, generator=g)
+    b = torch.randint(-2**31, 2**31 - 1, (k, p, 8), dtype=torch.int32, device=dev, generator=g)
+    for x, a_side in ((a, True), (b, False)):
+        got = FR.fr_planes(x, a_side)
+        torch.cuda.synchronize()
+        assert torch.equal(got, FR.fr_planes_plain(x, a_side))
 
 
 def test_dkg_device_engine_on_the_card_matches_cpu(dev):

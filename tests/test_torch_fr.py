@@ -14,10 +14,19 @@ reference's ``hbbft_tpu/ops/fr_jax.py`` and Python integers.
 - The sampler gives canonical values, the same ones for the same
   generator seed, equal to the reference layout's sampler on the same
   bytes.
+- The kernel's byte planes (``fr_planes``' plain version), read as the
+  kernel's descriptors read them, their u8 product split into the
+  tensor cores' accumulator registers, the kernel's sixteen lane
+  rotations and the reducers' diagonal sums, emulated in numpy, equal
+  Python's (acc + Σ a·b) mod r on random, zero, ragged multi-tile,
+  paired-tile and worst-case inputs; every diagonal sum stays below
+  2^31 at k = 971 with every byte 0xFF.
 - ``csrc/fr_words.cuh`` — the kernel's arithmetic — compiled for the
-  host by the C++ compiler, equals Python integers on the same cases,
-  its constants equal Python's, and its reduction is exact on the
-  largest sums of k = 2^16 terms, far past the wrapper's bound.
+  host by the C++ compiler, equals Python integers on the same cases
+  (the byte products summed by diagonal in 32 bits, as the kernel sums
+  them), its positions-to-words conversion on its extremes, its
+  constants equal Python's, and its reduction is exact on sums with
+  carry counters at 2^16, far past what the conversion leaves.
 
 Tolerance 0 throughout: all of it is integer arithmetic.
 """
@@ -188,6 +197,161 @@ def test_fr_matmul_bounds_raise():
 
 
 # ---------------------------------------------------------------------------
+# The kernel's byte-plane arithmetic, emulated (csrc/fr_matmul.cu)
+# ---------------------------------------------------------------------------
+
+# The descriptors' strides: wgmma's K-major layout without swizzle reads
+# byte (row, k) of a block at (row // 8)·SBO + (k // 16)·LBO + (row % 8)·16
+# + k % 16.
+_LBO, _SBO = 128, 256
+
+
+def _read_block(block, rows):
+    """One (tile, k-step) block of planes → [rows, 32] as wgmma reads it."""
+    r = np.arange(rows)[:, None]
+    k = np.arange(32)[None, :]
+    return block[(r // 8) * _SBO + (k // 16) * _LBO + (r % 8) * 16 + k % 16]
+
+
+def _registers(C):
+    """A tile's [128, 256] product as the two consumer warpgroups hold it:
+    [warp 8, lane 32, register 128] (wgmma's m64n256 accumulator layout:
+    warp w of warpgroup g holds rows 64g + 16w + lane/4 + {0, 8}, register
+    4c + 2h + e column 8c + 2·(lane % 4) + e of row offset 8h)."""
+    w = np.arange(8)[:, None, None]
+    lane = np.arange(32)[None, :, None]
+    i = np.arange(128)[None, None, :]
+    row = 64 * (w // 4) + 16 * (w % 4) + lane // 4 + 8 * ((i // 2) % 2)
+    col = 8 * (i // 4) + 2 * (lane % 4) + i % 2
+    return C[row, col]
+
+
+def _emulate_fr_matmul(a, b, acc):
+    """The kernel on the CPU: (acc + a·b) mod r as ints, and the largest
+    diagonal sum any step formed."""
+    m, k = a.shape[:2]
+    p = b.shape[1]
+    pa, pb = FR.fr_planes(a, True).numpy(), FR.fr_planes(b, False).numpy()
+    assert pa.shape[:2] == (-(-m // 4), max(1, -(-k // 32))) and pb.shape[:2] == (-(-p // 8), pa.shape[1])
+    accs = FR.words_to_fr(acc) if acc is not None else [0] * (m * p)
+    lane = np.arange(32)
+    out, peak = {}, 0
+    # m ≤ 2: paired tiles, both warpgroups on A's first 64 plane rows
+    # against B tiles 2t and 2t + 1 (the second may lie past p)
+    pair = m <= 2
+    nbt = pb.shape[0]
+    for mt in range(pa.shape[0]):
+        for nt in range(-(-nbt // 2) if pair else nbt):
+            A = np.concatenate([_read_block(pa[mt, s], 128) for s in range(pa.shape[1])], axis=1)
+
+            def b_tile(bt):
+                if bt >= nbt:
+                    return np.zeros((256, A.shape[1]), dtype=np.uint8)
+                return np.concatenate([_read_block(pb[bt, s], 256) for s in range(pb.shape[1])],
+                                      axis=1)
+
+            if pair:
+                C = np.concatenate([A[:64].astype(np.int64) @ b_tile(2 * nt + w).astype(np.int64).T
+                                    for w in (0, 1)], axis=0)
+            else:
+                C = A.astype(np.int64) @ b_tile(nt).astype(np.int64).T
+            d = _registers(C)
+            peak = max(peak, int(d.max()))
+            S = np.zeros((2, 64, 32), dtype=np.int64)  # [u][position][output]
+            for w in range(8):
+                i4, u = 2 * (w // 4) + (w % 4 >> 1), w & 1
+                for j in range(8):
+                    every = np.zeros(32, dtype=np.int64)
+                    hi = np.zeros(32, dtype=np.int64)
+                    for v in range(16):
+                        delta = 8 * (v >> 2) + 2 * ((v >> 1) & 1) + 4 * (v & 1)
+                        x = d[w, (lane - delta) & 31, 16 * j + v]
+                        every += x
+                        hi += np.where(lane < delta, x, 0)
+                    assert not hi[30:].any()
+                    S[u, lane + u, i4 * 8 + j] = every - hi
+                    S[u, lane[:30] + 32 + u, i4 * 8 + j] = hi[:30]
+            peak = max(peak, int(S.max()))
+            pos = np.zeros((64, 32), dtype=np.int64)
+            pos[:62] += S[0, :62]
+            pos[1:63] += S[1, 1:63]
+            peak = max(peak, int(pos.max()))
+            for o in range(32):
+                wg, i = o >> 4, (o >> 3) & 1
+                i = mt * 4 + (i if pair else 2 * wg + i)
+                j = ((2 * nt + wg) if pair else nt) * 8 + (o & 7)
+                if i < m and j < p:
+                    total = accs[i * p + j] + sum(int(v) << (8 * q) for q, v in enumerate(pos[:, o]))
+                    out[i * p + j] = total % R
+    return [out[x] for x in range(m * p)], peak
+
+
+@pytest.mark.parametrize(
+    "m,k,p,kind",
+    [(7, 5, 13, "random"), (5, 40, 17, "random256"), (1, 2, 9, "random"), (3, 33, 8, "zero"),
+     (4, 0, 3, "random"), (2, 33, 25, "random256"), (1, 3, 8, "random")],
+    ids=["7x5x13", "multi-tile", "sampler-shape", "zeros", "k0", "paired", "paired-one-tile"],
+)
+def test_kernel_arithmetic_emulated(m, k, p, kind):
+    rng = random.Random(m * 1000 + k * 10 + p)
+    draw = {"random": lambda r: r.randrange(R), "random256": lambda r: r.randrange(1 << 256),
+            "zero": lambda r: 0}[kind]
+    A, B, ACC = _mats(rng, m, k, p, draw)
+    a, b, acc = _words(_flat(A), m, k), _words(_flat(B), k, p), _words(_flat(ACC), m, p)
+    assert _emulate_fr_matmul(a, b, acc)[0] == _want(A, B, p, ACC)
+    assert _emulate_fr_matmul(a, b, None)[0] == _want(A, B, p)
+
+
+def test_kernel_arithmetic_worst_case_k971():
+    """Every byte 0xFF at the wrapper's bound: exact, and every diagonal
+    sum below 2^31 (the s32 accumulators' and the header's bound)."""
+    k = FR._MAX_K
+    a, b = _words([MAX256] * k, 1, k), _words([MAX256] * (2 * k), k, 2)
+    acc = _words([MAX256] * 2, 1, 2)
+    got, peak = _emulate_fr_matmul(a, b, acc)
+    assert got == [(MAX256 + k * MAX256 * MAX256) % R] * 2
+    assert peak == 32 * 255 * 255 * k < 1 << 31
+
+
+def test_planes_layout():
+    """Plane bytes land where the kernel's tile math expects them: A's byte
+    x = 4g + 2h + u at plane row 16u + 8h + g, B's byte y = t + 8c + 4e
+    at plane row 8c + 2t + e, zero past the edges."""
+    m, k, p = 5, 37, 11
+    rng = random.Random(3)
+    a = _words([rng.randrange(1 << 256) for _ in range(m * k)], m, k)
+    b = _words([rng.randrange(1 << 256) for _ in range(k * p)], k, p)
+    ab, bb = a.view(torch.uint8).numpy(), b.view(torch.uint8).numpy()
+    pa, pb = FR.fr_planes(a, True).numpy(), FR.fr_planes(b, False).numpy()
+    assert pa.shape == (2, 2, 4096) and pb.shape == (2, 2, 8192)
+    for i, kk, x in [(0, 0, 0), (4, 36, 31), (3, 17, 9), (1, 32, 16)]:
+        row = 32 * (i % 4) + 16 * (x & 1) + 8 * ((x >> 1) & 1) + (x >> 2)
+        assert _read_block(pa[i // 4, kk // 32], 128)[row, kk % 32] == ab[i, kk, x]
+    for kk, j, y in [(0, 0, 0), (36, 10, 31), (20, 3, 13)]:
+        t, e, c = y & 3, (y >> 2) & 1, y >> 3
+        row = 32 * (j % 8) + 8 * c + 2 * t + e
+        assert _read_block(pb[j // 8, kk // 32], 256)[row, kk % 32] == bb[kk, j, y]
+    assert not _read_block(pa[1, 1], 128)[32:].any()  # rows past m
+    assert not _read_block(pa[0, 1], 128)[:, 5:].any()  # k past 37
+    assert not _read_block(pb[1, 0], 256)[96:].any()  # columns past p
+
+
+def test_fr_walls_split_patches_apply():
+    """scripts/torch_fr_walls.py's --split variants patch copies of
+    csrc/fr_matmul.cu by text: every anchor must be in the source once."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_fr_walls", kernels.PKG_DIR.parent / "scripts" / "torch_fr_walls.py")
+    walls = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(walls)
+    src = (kernels.CSRC / "fr_matmul.cu").read_text()
+    for label, patches in walls.VARIANTS.items():
+        for old, _ in patches:
+            assert src.count(old) == 1, (label, old)
+
+
+# ---------------------------------------------------------------------------
 # Sampling
 # ---------------------------------------------------------------------------
 
@@ -209,10 +373,13 @@ def test_sampler_canonical_and_seeded():
 # ---------------------------------------------------------------------------
 
 HEADER = kernels.CSRC / "fr_words.cuh"
-# The header's sums are exact far past the wrapper's k ≤ 971: its carry
-# counters hold k < 2^32 terms.  The host build is checked at 2^16, a
-# worst case of milliseconds.
+# The header's reduction takes sums with carry counters; the host build
+# checks it with every counter at 2^16, far past the one word the
+# positions conversion leaves there.
 HEADROOM_K = 1 << 16
+# The largest k whose diagonal sums, at most 32·255²·k, stay below 2^31:
+# the header's own bound, past the wrapper's k ≤ 971.
+POSITIONS_K = (1 << 31) // (32 * 255 * 255)
 
 _HARNESS = r"""
 #include <cstddef>
@@ -221,25 +388,36 @@ _HARNESS = r"""
 #define __forceinline__ inline
 #include "fr_words.cuh"
 extern "C" {
-// the kernel's per-output loop, one output after another
+// the kernel's arithmetic, one output after another: the byte products of
+// the planes summed by diagonal in 32 bits, then the 17 words and the
+// reduction
 void h_fr_matmul(const uint32_t* A, const uint32_t* B, const uint32_t* ACC, uint32_t* OUT,
                  int M, int K, int P) {
   for (int m = 0; m < M; ++m)
     for (int p = 0; p < P; ++p) {
-      FrSum s;
-      fr_sum_init(s, ACC ? ACC + ((size_t)m * P + p) * FR_W : nullptr);
+      uint32_t S[FR_POS] = {0};
       for (int k = 0; k < K; ++k) {
-        uint32_t a[FR_W], b[FR_W];
-        for (int i = 0; i < FR_W; ++i) {
-          a[i] = A[((size_t)m * K + k) * FR_W + i];
-          b[i] = B[((size_t)k * P + p) * FR_W + i];
-        }
-        fr_sum_mac(s, a, b);
+        const uint8_t* a = (const uint8_t*)(A + ((size_t)m * K + k) * FR_W);
+        const uint8_t* b = (const uint8_t*)(B + ((size_t)k * P + p) * FR_W);
+        for (int x = 0; x < 32; ++x)
+          for (int y = 0; y < 32; ++y) S[x + y] += (uint32_t)a[x] * b[y];
       }
+      FrSum s;
+      fr_sum_positions(s, S, ACC ? ACC + ((size_t)m * P + p) * FR_W : nullptr);
       uint32_t o[FR_W];
       fr_sum_reduce(s, o);
       for (int i = 0; i < FR_W; ++i) OUT[((size_t)m * P + p) * FR_W + i] = o[i];
     }
+}
+// the positions conversion and the reduction of one output
+void h_fr_positions(const uint32_t* S, const uint32_t* acc, uint32_t* out) {
+  uint32_t pos[FR_POS];
+  for (int q = 0; q < FR_POS; ++q) pos[q] = S[q];
+  FrSum s;
+  fr_sum_positions(s, pos, acc);
+  uint32_t o[FR_W];
+  fr_sum_reduce(s, o);
+  for (int i = 0; i < FR_W; ++i) out[i] = o[i];
 }
 // the reduction of a sum given as its 16 words and 8 carry counters
 void h_fr_reduce(const uint32_t* w, const uint32_t* c, uint32_t* out) {
@@ -272,6 +450,7 @@ def host_lib(tmp_path_factory):
     p = ctypes.c_void_p
     lib.h_fr_matmul.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.h_fr_reduce.argtypes = [p, p, p]
+    lib.h_fr_positions.argtypes = [p, p, p]
     return lib
 
 
@@ -311,7 +490,7 @@ def test_header_constants():
 @pytest.mark.parametrize(
     "m,k,p,kind",
     [(7, 5, 13, "random"), (1, 33, 9, "random256"), (2, 971, 1, "r-1"), (1, 971, 2, "max256"),
-     (1, HEADROOM_K, 1, "r-1"), (1, HEADROOM_K, 1, "max256"), (2, 3, 2, "zero"),
+     (1, POSITIONS_K, 1, "r-1"), (1, POSITIONS_K, 1, "max256"), (2, 3, 2, "zero"),
      (2, 0, 3, "random")],
 )
 def test_host_header_matches_bigint(host_lib, m, k, p, kind):
@@ -329,11 +508,10 @@ def test_host_header_matches_bigint(host_lib, m, k, p, kind):
 
 
 def test_host_reduction_edges(host_lib):
-    """The reduction alone, on sums the multiply-adds can leave (a
-    counter grows by at most one a multiply-add, so it stays within
-    ``HEADROOM_K`` for k ≤ ``HEADROOM_K``): every word at its maximum with every counter at
-    the bound, values just below, at and above multiples of r, and
-    random sums."""
+    """The reduction alone, on sums with carry counters up to
+    ``HEADROOM_K`` (the positions conversion leaves one, word 16, below
+    2^10): every word at its maximum with every counter at the bound,
+    values just below, at and above multiples of r, and random sums."""
     rng = random.Random(0xF00D)
     kmax = HEADROOM_K
     cases = [([0xFFFFFFFF] * 16, [kmax] * 8), ([0] * 16, [0] * 8)]
@@ -348,6 +526,33 @@ def test_host_reduction_edges(host_lib):
         host_lib.h_fr_reduce(wa.ctypes.data, ca.ctypes.data, out.ctypes.data)
         total = sum(x << (32 * i) for i, x in enumerate(w)) + sum(x << (32 * (9 + j)) for j, x in enumerate(c))
         assert _ints(out) == [total % R]
+
+
+@pytest.mark.parametrize(
+    "kind,with_acc",
+    [("max-k971", True), ("max-k971", False), ("random", True), ("zero", True), ("zero", False)],
+    ids=["max-k971-acc", "max-k971", "random-acc", "zero-acc", "zeros"],
+)
+def test_host_positions_to_words(host_lib, kind, with_acc):
+    """``fr_sum_positions`` and ``fr_sum_reduce`` against Python on the
+    positions' extremes: the diagonal sums of every byte 0xFF at k = 971
+    (the largest the kernel forms), random sums below 2^31, zeros; acc
+    2^256 − 1 (every acc word at its maximum) or none."""
+    k = FR._MAX_K
+    if kind == "max-k971":
+        S = [min(q + 1, 63 - q) * 255 * 255 * k if q < 63 else 0 for q in range(64)]
+        assert max(S) < 1 << 31
+    elif kind == "random":
+        rng = random.Random(0x505)
+        S = [rng.randrange(1 << 31) for _ in range(64)]
+    else:
+        S = [0] * 64
+    acc = MAX256 if with_acc else 0
+    sa = np.array(S, dtype=np.uint32)
+    aa = _u32([acc]) if with_acc else None
+    out = np.zeros(8, dtype=np.uint32)
+    host_lib.h_fr_positions(sa.ctypes.data, None if aa is None else aa.ctypes.data, out.ctypes.data)
+    assert _ints(out) == [(acc + sum(v << (8 * q) for q, v in enumerate(S))) % R]
 
 
 def test_plain_matches_host_header(host_lib):
