@@ -55,18 +55,19 @@ In order, and with no phase's failure caught:
 3c. **The flat sharded MSM** — ``CudaBackend(mesh=make_mesh(4)).g1_msm``
    at K = 65,536 with 128-bit scalars (identity rows, zero scalars)
    must equal native ``hb_g1_msm``.
-4. **The verified DKG at full width** — ``VectorizedDkg(range(128), 42,
+4. **The verified DKG** — ``VectorizedDkg(range(64), 21,
    Random(0xD6)).run(verify_honest=True)`` (``bench_dkg_verified``'s
-   shape): 236,672 commitment entries in one fused G2 MSM on the card,
-   settling 16,384 row and 2,097,152 value checks.  It must log no
-   fault, complete all 128 parts and launch ``win_g2``; t + 1 signature
+   N = 128, t = 42 cut to half, as ``scripts/torch_dkg_walls.py`` keeps
+   the whole): 30,976 commitment entries in one fused G2 MSM on the card,
+   settling 4,096 row and 262,144 value checks.  It must log no
+   fault, complete all 64 parts and launch ``win_g2``; t + 1 signature
    shares must combine and verify under the generated key set.  The
    same dealing with one row cell perturbed must make the fused check
    return False on the card.  ``win_g2`` is then timed once on the
    DKG's whole fused MSM, and once beside its plain version on the
    first 16,384 rows; the kernel must equal the plain version at
    canonical values on those rows and on the last 1,000 (the plain
-   version over every row would take over two minutes).
+   version takes about 0.6 ms a row).
 4b. **The HoneyBadger epoch** — ``VectorizedHoneyBadgerSim`` end to end
    (threshold encryption, the batched reliable broadcast on the host,
    the array agreement, the decryption flush on the card, Lagrange
@@ -125,15 +126,46 @@ In order, and with no phase's failure caught:
    contributions; the path launches ``fr_matmul`` and no EC kernel.
    The setup wall, ``era_switch_s``, the DKG's wall and stage walls
    (dealing, generation, key rebuild) and ``next_epoch_s`` are printed.
-5. **scan_g1** — lies on no production path: its entry point
+4d. **scan_g1** — lies on no production path: its entry point
    ``scalar_mul_scan`` (the counterpart of ``scalar_mul_pallas``) is
    driven once at K = 65,536 × 255 bits and checked against native on a
    sample, then the kernel and its plain version are timed there.
+5. **The sequential engines** — the protocol state machines on the
+   port's ``TestNetwork``, every share check through
+   ``BatchingBackend(inner=CudaBackend())``; a *forced* backend has
+   ``G1_PRODUCT_DEVICE_MIN = G1_DEVICE_MIN = 1`` on its ``CudaBackend``
+   instance alone, so every flush, however small, runs its G1 MSMs
+   (``win_g1``) on the card.  (a) QueueingHoneyBadger over
+   DynamicHoneyBadger at the reference simulation's defaults (10 nodes,
+   none dead, 1,000 transactions of 10 bytes, batch 100, ``Random(0)``,
+   SilentAdversary with the RANDOM scheduler, real BLS) on a forced
+   backend, then on an unforced one (the host): every transaction
+   committed at every node, each epoch's batch byte-equal at every node
+   and across the two runs, ``win_g1`` launched at least once a
+   non-empty flush, no fallback; the wall, epochs, flushes, shares
+   shipped and launches are printed.  (b) HoneyBadger at N = 16 with 5
+   dead, real BLS, forced, every live node proposing up front: the first
+   batch equals ``VectorizedHoneyBadgerSim``'s for the same
+   contributions.  (c) One forged real decryption share (a random G1
+   point, from a script-local adversary) checked in a flush, forced and
+   on the host: both attribute the same ``INVALID_DECRYPTION_SHARE`` to
+   the forger and commit the same batch; the forced flush falls back on
+   the card's rejection.  (d) DynamicHoneyBadger at N = 4 with real BLS,
+   forced and on the host: every validator votes ``Remove(0)``, then
+   ``Add(0)`` with node 0's old key, each change running the on-chain
+   DKG (DhbKeyGen over SyncKeyGen, signed votes and key-generation
+   messages) and restarting the era under the new keys; every node must
+   output both changes and commit every transaction, the batches must be
+   byte-equal at every node and across the two runs, every node must
+   hold the same new key set, every key share must sign under it and
+   t + 1 of them combine and verify; ``win_g1`` launched at least once a
+   non-empty flush, no fallback.
 6. **Report** — the ``kernels`` JSON line (launches counted per path:
    each path's counts are set to 0 just before it and read just after —
    the flush, the mesh flush, the DKG, the n = 64 epochs on the card
    (``epoch64``), on the mesh (``epoch64_mesh``) and the N = 1024
-   epochs (``epoch1024``) each on its own; ``launches`` is the N = 1024
+   epochs (``epoch1024``), and phase 5's four forced runs (``seq_qhb``,
+   ``seq_hb16``, ``seq_forged``, ``seq_churn``) each on its own; ``launches`` is the N = 1024
    epochs' for ``win_g1``, the mesh epochs' for ``ring_permute``, the
    DKG's for ``win_g2``, the entry point's for ``scan_g1`` and the
    churn's (``churn1024``) for ``fr_matmul`` and ``fr_planes``, and
@@ -141,7 +173,7 @@ In order, and with no phase's failure caught:
    ``fr_planes``' with ``fr_check`` and ``dkg_coeffs``; ``win_g2``'s row
    is timed
    on the DKG's first 16,384 rows and adds ``dkg_ms`` /
-   ``dkg_bound_ms`` at its whole 236,672; ``win_g1``'s row is timed at
+   ``dkg_bound_ms`` at its whole 30,976; ``win_g1``'s row is timed at
    the flush's 65,536 points and adds ``epoch_ms`` / ``epoch_bound_ms``
    at the N = 1024 epoch's 948,676; ``fr_matmul``'s is timed at the
    value-grid shape (its two ``fr_planes`` launches included; the
@@ -176,8 +208,11 @@ FLUSHES = 3
 K_CHECK = 1000
 K_TIME = N_NODES * GROUPS
 TIME_REPS = 3
-DKG_NODES = 128
-DKG_T = 42
+# cut from bench_dkg_verified's N = 128, t = 42 to keep the script inside
+# its time limit with the sequential phase; scripts/torch_dkg_walls.py
+# keeps N = 128
+DKG_NODES = 64
+DKG_T = 21
 DKG_SEED = 0xD6
 # win_g2's plain version is timed on this many of the DKG's rows (about
 # 0.6 ms a row; 16,384 keeps the script well inside its time limit)
@@ -197,6 +232,22 @@ BIG_NODES = 1024
 BIG_SEED = 0x1024
 BIG_DEAD = 50
 CHURN_SEED = 0xC5
+# the sequential engines: the reference simulation's defaults
+# (examples/simulation.rs:33-52, bench.py's bench_sim_default)
+SEQ_NODES = 10
+SEQ_TXS = 1000
+SEQ_TX_BYTES = 10
+SEQ_BATCH = 100
+SEQ_SEED = 0
+SEQ_HB_NODES = 16
+SEQ_HB_DEAD = 5
+SEQ_HB_SEED = 0x16
+SEQ_FORGE_NODES = 4
+SEQ_FORGE_SEED = 0xF0
+# the real-BLS Remove(0) → Add(0) churn of tests/test_torch_seq_dynamic.py
+SEQ_CHURN_NODES = 4
+SEQ_CHURN_TXS = 4
+SEQ_CHURN_SEED = 80
 # fr_matmul / fr_planes launches timed on the card's timeline
 FR_REPS = 10
 
@@ -355,6 +406,381 @@ def fr_bound(m: int, k: int, p: int, acc: bool):
     32 bytes an element."""
     nbytes = 32 * (m * k + k * p + m * p * (2 if acc else 1))
     return fr_bound_macs(m * k * p, nbytes)
+
+
+# ---------------------------------------------------------------------------
+# The sequential engines (phase 5): runs over the port's TestNetwork,
+# importable so that the CPU tests can run them at small sizes
+# ---------------------------------------------------------------------------
+
+
+def forced(backend):
+    """``backend`` (a ``CudaBackend``) with its size band opened on this
+    instance alone: every G1 MSM of a flush, however small, runs on the
+    card (the class values stay 2^12)."""
+    backend.G1_PRODUCT_DEVICE_MIN = backend.G1_DEVICE_MIN = 1
+    return backend
+
+
+def dhb_batch_bytes(batch) -> bytes:
+    """A ``DhbBatch`` (not a wire type) as the ``dumps`` bytes of its
+    fields: epoch, contributions, change, key set."""
+    from hbbft_tpu_torch.core.serialize import dumps
+
+    return dumps((batch.epoch, batch.contributions, batch.change, batch.pub_netinfo))
+
+
+def seq_qhb_run(ops, nodes=SEQ_NODES, txs=SEQ_TXS, batch_size=SEQ_BATCH,
+                tx_bytes=SEQ_TX_BYTES, seed=SEQ_SEED):
+    """QueueingHoneyBadger over DynamicHoneyBadger on the port's
+    ``TestNetwork`` (SilentAdversary, RANDOM scheduler, no dead node),
+    the reference simulation's setup: ``txs`` random transactions of
+    ``tx_bytes`` from ``Random(seed)``, every node starting with all of
+    them queued, until every node has committed every one.  Real BLS,
+    every share check through ``ops``; the network flushes them every
+    ``nodes`` steps.  Returns the run's batches and counts."""
+    from hbbft_tpu_torch.harness.network import MessageScheduler, SilentAdversary, TestNetwork
+    from hbbft_tpu_torch.protocols.dynamic_honey_badger import DynamicHoneyBadger
+    from hbbft_tpu_torch.protocols.queueing_honey_badger import QueueingHoneyBadger
+
+    rng = random.Random(seed)
+    all_txs = [bytes(rng.randrange(256) for _ in range(tx_bytes)) for _ in range(txs)]
+
+    def new_algo(netinfo):
+        node_rng = random.Random(f"sim-{netinfo.our_id}")
+        dhb = DynamicHoneyBadger(netinfo, rng=node_rng)
+        return (QueueingHoneyBadger.builder(dhb).batch_size(batch_size).rng(node_rng)
+                .build_with_transactions(list(all_txs)))
+
+    t0 = time.perf_counter()
+    net = TestNetwork(
+        nodes, 0, lambda adv: SilentAdversary(MessageScheduler(MessageScheduler.RANDOM, rng)),
+        new_algo, rng, mock_crypto=False, ops=ops,
+    )
+    setup_s = time.perf_counter() - t0
+    # each node's committed transactions, updated as its batches arrive
+    missing = {nid: set(all_txs) for nid in net.nodes}
+    seen = dict.fromkeys(net.nodes, 0)
+    steps = 0
+    t0 = time.perf_counter()
+    while True:
+        for nid, n in net.nodes.items():
+            for b in n.outputs[seen[nid]:]:
+                missing[nid].difference_update(b.tx_iter())
+            seen[nid] = len(n.outputs)
+        if not any(missing.values()):
+            break
+        if not net.any_busy():
+            raise RuntimeError("the sequential QHB network went idle")
+        net.step()
+        steps += 1
+    wall_s = time.perf_counter() - t0
+    batches = {nid: [dhb_batch_bytes(b) for b in n.outputs] for nid, n in net.nodes.items()}
+    return {"batches": batches, "steps": steps, "setup_s": setup_s, "wall_s": wall_s,
+            "epochs": max(len(b) for b in batches.values())}
+
+
+def seq_hb_first_batch(ops, nodes=SEQ_HB_NODES, dead=SEQ_HB_DEAD, seed=SEQ_HB_SEED):
+    """Sequential HoneyBadger on the port's ``TestNetwork`` with the last
+    ``dead`` nodes silent and every live node proposing up front (the
+    shape of ``tests/test_epoch_vec.py``'s ``sequential_first_batch``);
+    real BLS.  Returns the contributions and the first batch, which must
+    be the same at every live node."""
+    from hbbft_tpu_torch.harness.network import MessageScheduler, SilentAdversary, TestNetwork
+    from hbbft_tpu_torch.protocols.honey_badger import HoneyBadger
+
+    rng = random.Random(seed)
+    net = TestNetwork(
+        nodes - dead, dead, lambda adv: SilentAdversary(MessageScheduler(MessageScheduler.RANDOM, rng)),
+        lambda ni: HoneyBadger(ni, rng=random.Random(f"{ni.our_id}-seq")), rng,
+        mock_crypto=False, ops=ops,
+    )
+    contributions = {i: [b"seq-%d" % i] for i in range(nodes)}
+    for nid in sorted(net.nodes):
+        net.input(nid, contributions[nid])
+    t0 = time.perf_counter()
+    while not all(n.outputs for n in net.nodes.values()):
+        if not net.any_busy():
+            raise RuntimeError("the sequential HoneyBadger network went idle")
+        net.step()
+    wall_s = time.perf_counter() - t0
+    first = [n.outputs[0] for n in net.nodes.values()]
+    if any(b != first[0] for b in first):
+        raise RuntimeError("live nodes disagree on the first batch")
+    return contributions, first[0], wall_s
+
+
+def seq_forged_share(ops, nodes=SEQ_FORGE_NODES, seed=SEQ_FORGE_SEED):
+    """Sequential HoneyBadger, real BLS, one corrupted node: the first
+    time an honest node holds epoch 0's ciphertexts, the corrupted node
+    sends every validator a decryption share of a random G1 point for
+    proposer 0,
+    and the network flushes before any node handles it, so the forged
+    share is checked in a flush.  Returns the first batch's bytes, every honest
+    node's fault log and the forger's id."""
+    from hbbft_tpu_torch.core.serialize import dumps
+    from hbbft_tpu_torch.core.step import Target
+    from hbbft_tpu_torch.crypto import fields as F
+    from hbbft_tpu_torch.crypto import threshold as T
+    from hbbft_tpu_torch.crypto.curve import G1_GEN
+    from hbbft_tpu_torch.harness import network as N
+    from hbbft_tpu_torch.protocols.honey_badger import (
+        HbDecryptionShare, HoneyBadger, HoneyBadgerMessage)
+
+    rng = random.Random(seed)
+
+    class ForgedShareAdversary(N.Adversary):
+        """A real-BLS decryption share that is a random G1 point
+        (``BadShareAdversary`` forges mock shares only).  Until the
+        network has flushed, no node is picked whose next message is the
+        forged share, so it is checked in a flush, not inline."""
+
+        def __init__(self):
+            self.scheduler = N.MessageScheduler(N.MessageScheduler.RANDOM, rng)
+            self.nodes, self.adv_ids = {}, []
+            self.forged, self.flushed = None, False
+
+        def init(self, all_nodes, adv_netinfos):
+            self.nodes, self.adv_ids = all_nodes, sorted(adv_netinfos)
+
+        def pick_node(self, nodes):
+            if self.forged is not None and not self.flushed:
+                later = {nid: n for nid, n in nodes.items() if n.queue and n.queue[0][1] is not self.forged}
+                if later:
+                    return self.scheduler.pick_node(later)
+            return self.scheduler.pick_node(nodes)
+
+        def push_message(self, sender_id, tm):
+            pass
+
+        def step(self):
+            if self.forged is not None or not any(0 in n.algo.ciphertexts for n in self.nodes.values()):
+                return []
+            share = T.DecryptionShare(G1_GEN * rng.randrange(1, F.R))
+            self.forged = HoneyBadgerMessage(0, HbDecryptionShare(0, share))
+            # to the validators only: the observer handles what it is sent
+            # at once, inline, and shares the validators' verdict cache
+            return [N.MessageWithSender(self.adv_ids[0], Target.to(nid).message(self.forged))
+                    for nid in sorted(self.nodes)]
+
+    adversary = ForgedShareAdversary()
+    net = N.TestNetwork(
+        nodes - 1, 1, lambda adv: adversary,
+        lambda ni: HoneyBadger(ni, rng=random.Random(f"{ni.our_id}-forge")), rng,
+        mock_crypto=False, ops=ops,
+    )
+    for nid in sorted(net.nodes):
+        net.input(nid, [b"forge-%d" % nid])
+    while not all(n.outputs for n in net.nodes.values()):
+        if not net.any_busy():
+            raise RuntimeError("the forged-share network went idle")
+        net.step()
+        if adversary.forged is not None and not adversary.flushed:
+            net.prefetch_crypto()
+            adversary.flushed = True
+    first = [dumps(n.outputs[0]) for n in net.nodes.values()]
+    if any(b != first[0] for b in first):
+        raise RuntimeError("honest nodes disagree on the first batch")
+    faults = {nid: [f.compact() for f in n.faults] for nid, n in net.nodes.items()}
+    return first[0], faults, adversary.adv_ids[0]
+
+
+def seq_dhb_churn(ops, nodes=SEQ_CHURN_NODES, txs_per_node=SEQ_CHURN_TXS, seed=SEQ_CHURN_SEED):
+    """DynamicHoneyBadger on the port's ``TestNetwork`` with real BLS:
+    every validator votes ``Remove(0)``; once every node has output that
+    change, the validators vote ``Add(0)`` with node 0's old key; the run
+    ends when every node has output both changes and committed every
+    transaction (the scenario of ``tests/test_torch_seq_dynamic.py``,
+    whose two-sided runs use mock crypto).  Each change runs DhbKeyGen
+    over SyncKeyGen with signed votes and key-generation messages, and
+    the era restarts under the generated keys.  Raises if the nodes
+    disagree on a batch or on the final key set, or if t + 1 shares of
+    the final keys do not sign; returns every node's batches as bytes,
+    the eras and the wall."""
+    from hbbft_tpu_torch.core.serialize import dumps
+    from hbbft_tpu_torch.harness.network import MessageScheduler, SilentAdversary, TestNetwork
+    from hbbft_tpu_torch.protocols import change as C
+    from hbbft_tpu_torch.protocols import dynamic_honey_badger as D
+
+    rng = random.Random(seed)
+    net = TestNetwork(
+        nodes, 0, lambda adv: SilentAdversary(MessageScheduler(MessageScheduler.RANDOM, rng)),
+        lambda ni: D.DynamicHoneyBadger(ni, rng=random.Random(f"dhb-{ni.our_id}")), rng,
+        mock_crypto=False, ops=ops,
+    )
+    queues = {nid: [b"tx-%d-%d" % (nid, i) for i in range(txs_per_node)] for nid in net.nodes}
+    all_txs = {tx for q in queues.values() for tx in q}
+    first_pk_set = dumps(net.nodes[0].algo.netinfo.public_key_set)
+    node0_pk = net.nodes[0].algo.netinfo.public_key(0)
+    for nid in sorted(net.nodes):
+        net.input(nid, D.ChangeInput(C.Remove(0)))
+
+    def changed(node, cls):
+        return any(isinstance(b.change, C.Complete) and isinstance(b.change.change, cls)
+                   for b in node.outputs)
+
+    def committed(node):
+        return {tx for b in node.outputs for tx in b.tx_iter()}
+
+    removed = added = False
+    steps = 0
+    t0 = time.perf_counter()
+    while not (added and all(committed(n) >= all_txs for n in net.nodes.values())):
+        steps += 1
+        if steps > 200_000:
+            raise RuntimeError(f"the real-BLS churn stalled (removed {removed}, added {added})")
+        if not removed and all(changed(n, C.Remove) for n in net.nodes.values()):
+            removed = True
+            for nid in sorted(net.nodes):
+                if net.nodes[nid].algo.netinfo.is_validator:
+                    net.input(nid, D.ChangeInput(C.Add(0, node0_pk)))
+        if not added and all(changed(n, C.Add) for n in net.nodes.values()):
+            added = True
+        if rng.random() < 0.2 or not net.any_busy():
+            nid = rng.choice(sorted(net.nodes))
+            node = net.nodes[nid]
+            if node.algo.netinfo.is_validator and not node.algo.has_input():
+                node.handle_input(D.UserInput([tx for tx in queues[nid] if tx not in committed(node)][:2]))
+                msgs = list(node.messages)
+                node.messages.clear()
+                net.dispatch_messages(nid, msgs)
+                continue
+        if net.any_busy():
+            net.step()
+    wall_s = time.perf_counter() - t0
+    batches = {nid: [dhb_batch_bytes(b) for b in n.outputs] for nid, n in net.nodes.items()}
+    for bs in batches.values():
+        for e, b in enumerate(bs):
+            if any(other[e] != b for other in batches.values() if len(other) > e):
+                raise RuntimeError(f"the real-BLS churn's nodes disagree on batch {e}")
+    infos = [n.algo.netinfo for n in net.nodes.values()]
+    pk_set = infos[0].public_key_set
+    if any(dumps(ni.public_key_set) != dumps(pk_set) for ni in infos):
+        raise RuntimeError("the real-BLS churn's nodes disagree on the final key set")
+    if dumps(pk_set) == first_pk_set or not all(ni.is_validator for ni in infos):
+        raise RuntimeError("the real-BLS churn did not end under new keys with node 0 back")
+    msg = b"era %d" % net.nodes[0].algo.start_epoch
+    shares = {ni.our_index: ni.secret_key_share.sign(msg) for ni in infos}
+    for i, share in shares.items():
+        if not pk_set.public_key_share(i).verify_signature_share(share, msg):
+            raise RuntimeError(f"the real-BLS churn: node {i}'s new key share does not sign")
+    signers = sorted(shares)[: pk_set.threshold + 1]
+    sig = pk_set.combine_signatures({i: shares[i] for i in signers})
+    if not pk_set.verify_signature(sig, msg) or pk_set.verify_signature(sig, msg + b"!"):
+        raise RuntimeError("the real-BLS churn: t + 1 shares of the new keys do not combine")
+    return {"batches": batches, "eras": sorted({n.algo.start_epoch for n in net.nodes.values()}),
+            "epochs": max(len(b) for b in batches.values()), "steps": steps, "wall_s": wall_s}
+
+
+def sequential_phase() -> dict:
+    """Phase 5 (see the module docstring); fails the script on any
+    mismatch.  Returns each forced run's launch counts by path."""
+    from hbbft_tpu_torch.core.serialize import dumps as wire_dumps
+    from hbbft_tpu_torch.harness.batching import BatchingBackend
+    from hbbft_tpu_torch.harness.epoch import VectorizedHoneyBadgerSim
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
+
+    def seq_backend(force: bool):
+        inner = CudaBackend()
+        return BatchingBackend(inner=forced(inner) if force else inner)
+
+    # (a) QHB over DHB at the reference simulation's defaults, on a forced
+    # backend (every flush's G1 MSMs on the card), then on the host
+    be = seq_backend(True)
+    cuda_ec.reset_launches()
+    qhb = seq_qhb_run(be)
+    seq_qhb_launches = dict(cuda_ec.LAUNCHES)
+    qhb_stats = be.stats
+    be_host = seq_backend(False)
+    before = dict(cuda_ec.LAUNCHES)
+    qhb_host = seq_qhb_run(be_host)
+    if cuda_ec.LAUNCHES != before:
+        fail("the unforced sequential QHB run launched a kernel")
+    for batches in qhb["batches"].values():
+        for e, b in enumerate(batches):
+            if any(bs[e] != b for bs in qhb["batches"].values() if len(bs) > e):
+                fail(f"sequential QHB: nodes disagree on epoch {e}'s batch")
+    if qhb["batches"] != qhb_host["batches"] or len(qhb["batches"]) != SEQ_NODES:
+        fail("sequential QHB: the forced run's batches differ from the host run's")
+    if qhb_stats.fallback_groups != 0 or be_host.stats.fallback_groups != 0:
+        fail(f"sequential QHB fell back: {qhb_stats} / {be_host.stats}")
+    if qhb_stats.flushes < 1 or seq_qhb_launches["win_g1"] < qhb_stats.flushes:
+        fail(f"sequential QHB: {qhb_stats.flushes} non-empty flushes but launches {seq_qhb_launches}")
+    log(
+        f"sequential QHB N={SEQ_NODES} txs={SEQ_TXS}x{SEQ_TX_BYTES}B batch={SEQ_BATCH} real BLS: "
+        f"every tx committed at every node in {qhb['epochs']} epochs, {qhb['steps']} steps; "
+        f"forced backend {qhb['wall_s']} s wall (setup {qhb['setup_s']} s), host backend "
+        f"{qhb_host['wall_s']} s; batches byte-equal; {qhb_stats.flushes} non-empty flushes "
+        f"shipping {qhb_stats.prefetched} shares ({qhb_stats.cache_hits} cache hits, "
+        f"{qhb_stats.cache_misses} inline checks); launches {seq_qhb_launches}"
+    )
+
+    # (b) HoneyBadger at N = 16 with 5 dead against the vectorized epoch
+    be = seq_backend(True)
+    cuda_ec.reset_launches()
+    contributions, seq_batch, hb16_s = seq_hb_first_batch(be)
+    seq_hb16_launches = dict(cuda_ec.LAUNCHES)
+    live = set(range(SEQ_HB_NODES - SEQ_HB_DEAD))
+    sim = VectorizedHoneyBadgerSim(SEQ_HB_NODES, random.Random(SEQ_HB_SEED + 1))
+    vec = sim.run_epoch({i: c for i, c in contributions.items() if i in live},
+                        dead=set(range(SEQ_HB_NODES)) - live)
+    if wire_dumps(seq_batch) != wire_dumps(vec.batch) or set(vec.accepted) != live:
+        fail("sequential HoneyBadger N=16: the first batch differs from the vectorized epoch's")
+    if (be.stats.fallback_groups != 0 or be.stats.flushes < 1
+            or seq_hb16_launches["win_g1"] < be.stats.flushes):
+        fail(f"sequential HoneyBadger N=16: {be.stats}, launches {seq_hb16_launches}")
+    log(
+        f"sequential HoneyBadger N={SEQ_HB_NODES} dead={SEQ_HB_DEAD} real BLS: first batch "
+        f"({len(seq_batch.contributions)} contributions) equal to VectorizedHoneyBadgerSim's, "
+        f"{hb16_s} s; {be.stats}; launches {seq_hb16_launches}"
+    )
+
+    # (c) one forged real decryption share, forced and on the host
+    be = seq_backend(True)
+    cuda_ec.reset_launches()
+    forged_batch, forged_faults, forger = seq_forged_share(be)
+    seq_forged_launches = dict(cuda_ec.LAUNCHES)
+    be_host = seq_backend(False)
+    host_batch, host_faults, _ = seq_forged_share(be_host)
+    named = [f for fs in forged_faults.values() for f in fs]
+    if not named or set(named) != {f"{forger!r}:INVALID_DECRYPTION_SHARE"}:
+        fail(f"forged share: faults {forged_faults}")
+    if forged_faults != host_faults or forged_batch != host_batch:
+        fail("forged share: the forced run's faults or batch differ from the host run's")
+    if be.stats.fallback_groups < 1 or seq_forged_launches["win_g1"] < 1:
+        fail(f"forged share: not rejected by a flush on the card ({be.stats}, "
+             f"launches {seq_forged_launches})")
+    log(
+        f"sequential forged share N={SEQ_FORGE_NODES}: attributed as {sorted(set(named))} on the "
+        f"card and on the host alike, same batch; {be.stats}; launches {seq_forged_launches}"
+    )
+
+    # (d) the real-BLS Remove(0) → Add(0) churn, forced and on the host
+    be = seq_backend(True)
+    cuda_ec.reset_launches()
+    churn = seq_dhb_churn(be)
+    seq_churn_launches = dict(cuda_ec.LAUNCHES)
+    be_host = seq_backend(False)
+    before = dict(cuda_ec.LAUNCHES)
+    churn_host = seq_dhb_churn(be_host)
+    if cuda_ec.LAUNCHES != before:
+        fail("the unforced real-BLS churn launched a kernel")
+    if churn["batches"] != churn_host["batches"] or churn["eras"] != churn_host["eras"]:
+        fail("real-BLS churn: the forced run's batches differ from the host run's")
+    if churn["eras"][0] < 1 or be.stats.fallback_groups != 0:
+        fail(f"real-BLS churn: eras {churn['eras']}, {be.stats}")
+    if be.stats.flushes < 1 or seq_churn_launches["win_g1"] < be.stats.flushes:
+        fail(f"real-BLS churn: {be.stats.flushes} non-empty flushes but launches {seq_churn_launches}")
+    log(
+        f"sequential real-BLS DHB churn N={SEQ_CHURN_NODES} Remove(0) → Add(0): both changes "
+        f"output at every node, every tx committed, {churn['epochs']} batches byte-equal at every "
+        f"node and forced vs host, era {churn['eras']}, new keys sign and verify; {churn['steps']} "
+        f"steps; forced backend {churn['wall_s']} s wall, host backend {churn_host['wall_s']} s; "
+        f"{be.stats}; launches {seq_churn_launches}"
+    )
+    return {"seq_qhb": seq_qhb_launches, "seq_hb16": seq_hb16_launches,
+            "seq_forged": seq_forged_launches, "seq_churn": seq_churn_launches}
 
 
 def main() -> int:
@@ -1189,7 +1615,7 @@ def main() -> int:
         f"{deal_b[3]} ms)")
     del sim, r1, r2, out, pk_set
 
-    # -- 5. scan_g1 through its entry point, then timed --------------------
+    # -- 4d. scan_g1 through its entry point, then timed -------------------
     wires, pts = g1_points(K_TIME, 64)
     scalars = [rng.randrange(0, F.R) for _ in range(K_TIME)]
     host_bits = LB.scalars_to_bits(scalars, SCAN_BITS)
@@ -1215,12 +1641,16 @@ def main() -> int:
         f"entry point checked on 200 rows against native"
     )
 
+    # -- 5. the sequential engines ----------------------------------------
+    seq_launches = sequential_phase()
+
     # -- 6. report ------------------------------------------------------
     by_path = {
         "win_g1": {"flush": flush_launches["win_g1"], "mesh_flush": mesh_launches["win_g1"],
                    "epoch64": epoch64_launches["win_g1"],
                    "epoch64_mesh": mesh64_launches["win_g1"],
-                   "epoch1024": big_launches["win_g1"]},
+                   "epoch1024": big_launches["win_g1"],
+                   **{path: n["win_g1"] for path, n in seq_launches.items()}},
         "win_g2": {"dkg": dkg_launches["win_g2"]},
         "scan_g1": {"scalar_mul_scan": scan_launches["scan_g1"]},
         "ring_permute": {"mesh_flush": mesh_launches["ring_permute"],

@@ -20,12 +20,18 @@ change (``harness/dynamic.py``: ``VectorizedDynamicSim``,
 ``VectorizedDynamicQueueingSim``) runs votes on-chain, a dealerless DKG
 whose clean elided dealing plane is the Fr matrix-product kernel
 ``csrc/fr_matmul.cu`` (``ops/fr.py``), and the era restart.  The
-bit-serial G1 ladder (``csrc/scan_g1.cu``) lies on no production path.
+sequential protocol engines every validator runs (``protocols/``:
+Broadcast, Agreement, CommonSubset, HoneyBadger, SyncKeyGen,
+DynamicHoneyBadger, QueueingHoneyBadger) run on the adversarial test
+network of ``harness/network.py``, their share checks flushed in
+batches through the same backend.  The bit-serial G1 ladder
+(``csrc/scan_g1.cu``) lies on no production path.
 
 Entry points run on the card unless the caller asks for the CPU:
 ``ops.backend_cuda.CudaBackend()``, ``harness.dkg.VectorizedDkg(...)``,
 ``harness.epoch.VectorizedHoneyBadgerSim(n, rng)``,
 ``harness.dynamic.VectorizedDynamicSim(n, rng)``,
+``harness.network.TestNetwork(...)`` without ``ops``,
 ``core.network_info.NetworkInfo.generate_map(...)`` and
 ``parallel.mesh.make_mesh(n)`` mean ``torch.device("cuda")`` and raise
 when CUDA is absent;

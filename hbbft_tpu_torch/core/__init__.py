@@ -1,1 +1,2 @@
-"""Core utilities of the port (canonical serialization)."""
+"""Core runtime of the port: Step, DistAlgorithm, FaultLog, NetworkInfo
+and canonical serialization."""

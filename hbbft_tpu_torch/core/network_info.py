@@ -15,6 +15,8 @@ host on its own.
 
 from __future__ import annotations
 
+import hashlib
+import random
 from typing import Any, Dict, Generic, List, Optional, TypeVar
 
 from ..crypto import mock as M
@@ -133,6 +135,32 @@ class NetworkInfo(Generic[N]):
         """Unique id of this protocol invocation = master public key bytes
         (reference ``messaging.rs:342-344``); bound into coin nonces."""
         return self._public_key_set.public_key().to_bytes()
+
+    def default_rng(self, label: str = "") -> random.Random:
+        """A deterministic per-node RNG, the default of every protocol
+        built without one (the reference's derivation, byte for byte, so
+        both packages draw the same stream).
+
+        RFC6979-style derivation: the seed hashes the invocation id,
+        our node id, a per-consumer ``label``, and — when we hold one —
+        our individual secret key.  Two runs of the same node over the
+        same network produce the identical stream (replayable,
+        co-simulation-stable), while the stream stays unpredictable to
+        other parties because the secret key is folded in.  Observers
+        (no secret key) still get a deterministic stream; they never
+        use it for anything secrecy-bearing (they propose nothing).
+        Callers needing fresh OS entropy instead (e.g. first-node key
+        generation) pass an explicit rng."""
+        h = hashlib.sha256()
+        h.update(b"hbbft_tpu/default_rng/v1|")
+        h.update(self.invocation_id())
+        h.update(b"|" + repr(self._our_id).encode())
+        h.update(b"|" + label.encode())
+        if self._secret_key is not None:
+            h.update(b"|sk|" + repr(self._secret_key).encode())
+        if self._secret_key_share is not None:
+            h.update(b"|sks|" + repr(self._secret_key_share).encode())
+        return random.Random(int.from_bytes(h.digest(), "big"))
 
     # -- test key dealing --------------------------------------------------
 

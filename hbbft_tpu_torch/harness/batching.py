@@ -5,8 +5,9 @@ The port of ``hbbft_tpu/harness/batching.py``: :class:`BatchingBackend`,
 ``_fused_check`` and the reveal plane's ``reveal_combine``, with the
 reference's transcript, coefficients and per-group / per-item fallback
 semantics, so every verdict it caches is the one the reference caches
-for the same obligations.  ``crypto_obligations`` (the sequential
-engines' obligation extractor) is not ported yet.
+for the same obligations; and ``crypto_obligations``, which extracts the
+share checks a message will cause from the sequential engines' message
+nesting, so ``harness.network.TestNetwork`` can flush them in batches.
 
 How it works: share verifications route through the ``CryptoBackend``
 seam (``verify_sig_share`` / ``verify_dec_share``) and are memoized by
@@ -539,3 +540,85 @@ class BatchingBackend:
         ok = pairing_check([(agg, G2_GEN)] + pairs)
         ph["pairing"] = _time.perf_counter() - _t0
         return ok
+
+
+# ---------------------------------------------------------------------------
+# Obligation extraction — walking the message nesting
+# ---------------------------------------------------------------------------
+
+
+def crypto_obligations(algo, sender_id, message) -> List[Obligation]:
+    """Extract the share verifications that handling ``message`` at
+    ``algo`` will perform — *without* touching any state.
+
+    Walks the QueueingHoneyBadger → DynamicHoneyBadger → HoneyBadger →
+    CommonSubset → Agreement → CommonCoin wrapper chain (reference
+    message namespacing, ``common_subset.rs:65-72``,
+    ``honey_badger/message.rs:8-16``, ``dynamic_honey_badger.rs:236``).
+    Best-effort: anything unrecognized (garbage injections, stale eras)
+    yields nothing and is handled by the inline path unchanged.
+    """
+    from ..protocols.agreement import AgreementMessage, CoinContent
+    from ..protocols.common_coin import (
+        CommonCoin,
+        CommonCoinMessage,
+        make_nonce,
+    )
+    from ..protocols.common_subset import CsAgreement
+    from ..protocols.dynamic_honey_badger import DhbHoneyBadger
+    from ..protocols.honey_badger import (
+        HbCommonSubset,
+        HbDecryptionShare,
+        HoneyBadgerMessage,
+    )
+
+    # unwrap the queueing/dynamic layers to the inner HoneyBadger
+    algo = getattr(algo, "dyn_hb", algo)
+    hb = getattr(algo, "honey_badger", algo)
+    netinfo = getattr(hb, "netinfo", None)
+    if netinfo is None:
+        return []
+    if isinstance(message, DhbHoneyBadger):
+        message = message.msg
+
+    out: List[Obligation] = []
+    try:
+        if isinstance(message, CommonCoinMessage) and isinstance(
+            algo, CommonCoin
+        ):
+            pk = netinfo.public_key_share(sender_id)
+            if pk is not None:
+                out.append(SigObligation(pk, message.share, algo.nonce))
+            return out
+        if not isinstance(message, HoneyBadgerMessage):
+            return out
+        epoch, content = message.epoch, message.content
+        pk = netinfo.public_key_share(sender_id)
+        if pk is None:
+            return out
+        if isinstance(content, HbDecryptionShare):
+            ct = getattr(hb, "ciphertexts", {}).get(epoch, {}).get(
+                content.proposer_id
+            )
+            if ct is not None:
+                out.append(DecObligation(pk, content.share, ct))
+        elif isinstance(content, HbCommonSubset):
+            cs_msg = content.msg
+            if isinstance(cs_msg, CsAgreement) and isinstance(
+                cs_msg.msg, AgreementMessage
+            ):
+                am = cs_msg.msg
+                if isinstance(am.content, CoinContent):
+                    try:
+                        proposer_idx = netinfo.node_index(cs_msg.proposer_id)
+                    except Exception:
+                        return out
+                    nonce = make_nonce(
+                        netinfo.invocation_id(), epoch, proposer_idx, am.epoch
+                    )
+                    out.append(
+                        SigObligation(pk, am.content.msg.share, nonce)
+                    )
+    except Exception:
+        return []
+    return out

@@ -1,1 +1,3 @@
-"""The protocol pieces the vectorized epoch takes from ``hbbft_tpu/protocols``."""
+"""The protocol state machines of ``hbbft_tpu/protocols``: Broadcast,
+Agreement, CommonCoin, CommonSubset, HoneyBadger, SyncKeyGen,
+DynamicHoneyBadger, QueueingHoneyBadger, and their data types."""

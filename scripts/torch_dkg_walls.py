@@ -2,8 +2,9 @@
 """The verified DKG's wall and stage walls, on the card.
 
 Runs ``VectorizedDkg(range(128), 42, Random(0xD6)).run(verify_honest=True)``
-once (236,672 G2 points in one fused MSM through ``win_g2``; the
-configuration chip_smoke.py drives) after building the kernels, checks
+once (236,672 G2 points in one fused MSM through ``win_g2``;
+``bench_dkg_verified``'s shape, which chip_smoke.py cuts to N = 64)
+after building the kernels, checks
 that it logged no fault and completed every part, and prints one JSON
 object with the wall, ``VectorizedDkg.last_phases`` and the launch
 counts, then the card's name and power limit.  It uses only the
