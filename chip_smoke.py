@@ -7,8 +7,9 @@ In order, and with no phase's failure caught:
 
 1. **Build** — the native host library (``make -C native``) and every
    CUDA kernel of the port (``win_g1``, ``win_g2``, ``scan_g1``,
-   ``ring_permute``, and ``fr_matmul`` with ``fr_planes`` in one source;
-   one ``nvcc`` per source, all at once), with
+   ``ring_permute``, ``fr_matmul`` with ``fr_planes`` in one source, and
+   ``cosim_step`` with ``cosim_hist`` in one source; one ``nvcc`` per
+   source, all at once), with
    the build seconds and ``ptxas`` resource lines printed.
 2. **Kernels against their plain versions** — at K = 1000 (not a
    multiple of 128) on random r-torsion points with identity rows and
@@ -160,7 +161,44 @@ In order, and with no phase's failure caught:
    hold the same new key set, every key share must sign under it and
    t + 1 of them combine and verify; ``win_g1`` launched at least once a
    non-empty flush, no fallback.
-6. **Report** — the ``kernels`` JSON line (launches counted per path:
+6. **The packed co-simulation** — (a) ``cosim_step`` (the co-sim's
+   decision, ``ops/cosim_step.py``) and ``cosim_hist`` (its zone
+   histogram) against their plain versions on the card, byte for byte
+   (the three int8 masks and the int32 commit column advanced in place):
+   random columns at n = 100,003 (not a multiple of a block) with about
+   1 % override rows and forged counts and a nonzero commit column, at
+   Z = 1, 5 and 300 zones (300 is above the kernels' 256 shared-memory
+   counters), their reach rows reaching a shuffled 1..Z zones so that
+   the rows without an override come out definite-0, nondef and
+   definite-1 (each class required, except definite-1 at Z = 1); the same
+   through ``packed_cosim_step_fn`` on the 4-shard mesh (the [Z]
+   partials ring-reduced by ``ring_permute``) against the one launch,
+   with the same classes; then both timed at n = 100,000, Z = 5 on the card's
+   timeline beside their plain versions and ``index_add_``.  (b)
+   ``bench_cosim``'s largest row: ``PackedHoneyBadgerCosim(100_000,
+   Random(0xC053), wan=WanModel(seed=0xC052, DEFAULT_TOPOLOGY,
+   LatencyModel("lognormal"), deadline_ms=400))``, the last 2,000 nodes
+   dead, ``run_epoch_packed`` one cold and three warm epochs (init, walls,
+   warm median epochs/s, accepted, coin flips, peak RSS, bytes a
+   validator, the last step's phases); a ``device="cpu"`` twin and a
+   ``make_mesh(4)`` twin must give the same accepted counts, coin flips
+   and ``commit_counts()``; on one card the run launches one
+   ``cosim_hist`` and one ``cosim_step`` an epoch.  (c)
+   ``bench_cosim``'s equivalence leg, cut from n = 1024 to 256 (its
+   n = 1024 dict plane takes ~34 s; ``scripts/torch_cosim_walls.py``
+   keeps it): ``VectorizedQueueingSim(256, Random(0xC051),
+   batch_size=256, mock=True)`` on ``CudaBackend()`` against
+   ``PackedQueueingCosim(256, Random(0xC051), batch_size=256)``, 512
+   transactions, the last 30 dead, 2 epochs: batches, accepted
+   sets, fault logs, coin flips and agreement epochs equal, rngs in
+   lockstep; then test_cosim's WAN model (a partition window, a zone
+   failure, pareto tails) at n = 64 for 4 epochs with one forger, the dict
+   plane through ``wan=``.  (d) ``hw=HwQuality.from_flags(100, 2000,
+   100)`` on the n = 64 real-BLS epoch (``Random(0x64)``,
+   ``verify_honest=True``) on ``CudaBackend()``: it must launch
+   ``win_g1``, its network terms must equal a ``CpuBackend()`` twin's,
+   and ``total_s == network_s + cpu_s``; the account is printed.
+7. **Report** — the ``kernels`` JSON line (launches counted per path:
    each path's counts are set to 0 just before it and read just after —
    the flush, the mesh flush, the DKG, the n = 64 epochs on the card
    (``epoch64``), on the mesh (``epoch64_mesh``) and the N = 1024
@@ -181,7 +219,13 @@ In order, and with no phase's failure caught:
    word form's IMAD count and the limb form's int8 tensor-core count,
    and adds ``dealing_s`` / ``dealing_bound_ms`` for the churn's whole
    N = 1023 dealing; ``fr_planes``' is timed at the value grid's B side,
-   bound by its bytes),
+   bound by its bytes; ``cosim_step``'s is timed at n = 100,000, Z = 5
+   (its ``cosim_hist`` launch included), its ``launches`` the n = 100,000
+   scale run's on one card (``cosim100k``), ``launches_by_path`` with the
+   mesh twin's (``cosim100k_mesh``) and the twins' (``cosim_twin``), and
+   its ``scale`` the scale run's init, cold wall and warm epochs/s;
+   ``cosim_hist``'s the same, its library call one ``index_add_``; both
+   bound by their bytes),
    the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -250,6 +294,38 @@ SEQ_CHURN_TXS = 4
 SEQ_CHURN_SEED = 80
 # fr_matmul / fr_planes launches timed on the card's timeline
 FR_REPS = 10
+# the packed co-simulation (phase 6): the step's check size (not a
+# multiple of a block), its zone counts (300 is above the kernels' 256
+# shared-memory zone counters) and its timed shape
+COSIM_CHECK_N = 100_003
+COSIM_ZS = (1, 5, 300)
+COSIM_TIME_N = 100_000
+COSIM_TIME_Z = 5
+COSIM_REPS = 50
+# bench_cosim's largest row (bench.py:2374-2453): 100,000 validators, the
+# last 2 % dead (bench.py:2425), DEFAULT_TOPOLOGY's five zones under
+# lognormal tails and a 400 ms deadline; one cold and three warm epochs
+COSIM_N = 100_000
+COSIM_DEAD = COSIM_N // 50
+COSIM_SEED = 0xC053
+COSIM_WAN_SEED = 0xC052
+COSIM_WARM = 3
+# bench_cosim's equivalence leg (bench.py:2455-2480), cut from n = 1024:
+# there the dict plane took 16.6 + 17.2 s on the card's host, past the
+# ~30 s this leg may take; scripts/torch_cosim_walls.py keeps n = 1024
+COSIM_TWIN_N = 256
+COSIM_TWIN_SEED = 0xC051
+COSIM_TWIN_DEAD = 30
+COSIM_TWIN_EPOCHS = 2
+# the WAN twin at n = 64 (tests/test_cosim.py's model), one forger
+COSIM_WAN_N = 64
+COSIM_WAN_EPOCHS = 4
+# bench_hb_1024_real's virtual-time profile (bench.py:1182): 100 ms lag,
+# 2,000 kbit/s, 100 % cpu
+HW_FLAGS = (100, 2000, 100)
+# the step's nine columns in packed_cosim_step_fn's order (reach third
+# from the front, params last)
+COSIM_ROWS = ("prop_on", "dst_on", "zone", "ovr_mask", "ovr_c1", "forged_cnt", "commit")
 
 # The card's peak int32 multiply-add rate: the published fp32 rate of an
 # H100 SXM (67 TFLOP/s = 2 flops per FMA lane-clock) halved for the
@@ -783,6 +859,297 @@ def sequential_phase() -> dict:
             "seq_forged": seq_forged_launches, "seq_churn": seq_churn_launches}
 
 
+# ---------------------------------------------------------------------------
+# The packed co-simulation (phase 6): importable so that a scratch script
+# can run it alone
+# ---------------------------------------------------------------------------
+
+
+def cosim_columns(gen, n: int, Z: int, n_pad: int):
+    """Random step columns for n instances in Z zones, rows past n zero
+    (``cosim_pad``'s padding): 1 % of proposers off, 1 % override rows
+    and 1 % forged counts, a nonzero commit column; zones in contiguous
+    blocks of about n/Z rows, as ``GeoTopology.assign`` gives them.
+
+    The yes votes of a row without an override, c1 ≈ n·(share of
+    receivers on)·(share of zones its zone reaches), must fall on both
+    sides of the f+1 and n_live−f thresholds (n_live = 0.98n, f = n/3),
+    so that a wrong histogram or reach row shows as a changed decision:
+    the reach rows reach a shuffled 1, 2, …, Z zones each, at random
+    columns, with 2 % of receivers off; at Z = 1, where every proposer
+    sees the one count, half the receivers are off, which puts that
+    count between the thresholds.  See :func:`cosim_classes`."""
+    cols = {
+        "prop_on": (gen.random(n) < 0.99).astype(np.int8),
+        "dst_on": (gen.random(n) < (0.5 if Z == 1 else 0.98)).astype(np.int8),
+        "zone": np.sort(gen.integers(0, Z, n)).astype(np.int32),
+        "ovr_mask": (gen.random(n) < 0.01).astype(np.int8),
+        "ovr_c1": gen.integers(0, n + 1, n).astype(np.int32),
+        "forged_cnt": np.where(gen.random(n) < 0.01, gen.integers(0, n + 1, n), 0).astype(np.int32),
+        "commit": gen.integers(0, 1000, n).astype(np.int32),
+    }
+    for k, v in cols.items():
+        cols[k] = np.concatenate([v, np.zeros(n_pad - n, dtype=v.dtype)])
+    reach = np.zeros((Z, Z), dtype=np.uint8)
+    for z, k in enumerate(gen.permutation(Z) + 1):
+        reach[z, gen.choice(Z, k, replace=False)] = 1
+    return cols, reach
+
+
+def cosim_classes(accepted, nondef, ovr_mask, n: int) -> tuple:
+    """How many of the first n rows without an override came out
+    definite-0 (not accepted), nondef (accepted, needing a coin) and
+    definite-1 (accepted alone)."""
+    acc, nd = np.asarray(accepted)[:n] != 0, np.asarray(nondef)[:n] != 0
+    free = np.asarray(ovr_mask)[:n] == 0
+    return int((free & ~acc).sum()), int((free & nd).sum()), int((free & acc & ~nd).sum())
+
+
+def cosim_bound(n: int, Z: int, hist_only: bool = False):
+    """(ms, "bytes"): the step's bytes over the card's memory rate —
+    prop_on, dst_on, ovr_mask (1 B), zone, ovr_c1, forged_cnt, commit
+    (4 B) and reach (Z² B) read once; commit (4 B) and the three masks
+    (1 B each) written once: 26 B an instance.  The histogram alone
+    reads dst_on and zone and writes Z counts."""
+    nbytes = 5 * n + 4 * Z if hist_only else 26 * n + Z * Z
+    return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def cosim_phase(mesh, record_err, timed, device_timed) -> dict:
+    """Phase 6 (see the module docstring) on the card; fails the script
+    on any mismatch.  Returns the kernels' times and bounds and each
+    path's launch counts."""
+    import torch
+
+    from hbbft_tpu_torch.crypto import mock as MK
+    from hbbft_tpu_torch.crypto.backend import CpuBackend
+    from hbbft_tpu_torch.harness import wan as W
+    from hbbft_tpu_torch.harness.cosim import PackedHoneyBadgerCosim, PackedQueueingCosim
+    from hbbft_tpu_torch.harness.epoch import VectorizedHoneyBadgerSim, VectorizedQueueingSim
+    from hbbft_tpu_torch.harness.simulation import HwQuality
+    from hbbft_tpu_torch.ops import cosim_step as CS
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
+    from hbbft_tpu_torch.parallel.mesh import cosim_pad, packed_cosim_step_fn
+
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(SEED)
+    out = {}
+
+    # (a) the kernels against their plain versions, one launch and a mesh
+    for Z in COSIM_ZS:
+        n = COSIM_CHECK_N
+        n_pad = cosim_pad(n, mesh.size)
+        cols, reach = cosim_columns(gen, n, Z, n_pad)
+        n_live, f = n - n // 50, (n - 1) // 3
+        t = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+        reach_t = torch.from_numpy(reach).to(dev)
+        a = CS.cosim_hist(t["dst_on"], t["zone"], Z)
+        record_err("cosim_hist", a, CS.cosim_hist_plain(t["dst_on"], t["zone"], Z), f"at Z={Z}")
+        commit_k, commit_p = t["commit"].clone(), t["commit"].clone()
+        args = [t[k] for k in COSIM_ROWS[:3]] + [reach_t] + [t[k] for k in COSIM_ROWS[3:6]]
+        got = CS.cosim_step(*args, commit_k, n_live, f)
+        plain = CS.cosim_step_plain(*args, commit_p, n_live, f)
+        for name, g, p in zip(("accepted", "nondef", "dec_fail"), got, plain):
+            record_err("cosim_step", g, p, f"{name} at n={n}, Z={Z}")
+        record_err("cosim_step", commit_k, commit_p, f"commit at n={n}, Z={Z}")
+        if torch.equal(commit_k, t["commit"]):
+            fail(f"cosim_step advanced no commit counter at Z={Z}")
+        # the mesh form: each shard's block, the [Z] partials ring-reduced
+        b = n_pad // mesh.size
+        shards = {k: [v[j * b : (j + 1) * b].clone().to(d) for j, d in enumerate(mesh.devices)]
+                  for k, v in t.items()}
+        res = packed_cosim_step_fn(mesh, Z)(
+            *(shards[k] for k in COSIM_ROWS[:3]), reach_t, *(shards[k] for k in COSIM_ROWS[3:]),
+            (n_live, f),
+        )
+        for name, g, want in zip(("accepted", "nondef", "dec_fail", "commit"), res,
+                                 list(got) + [commit_k]):
+            record_err("cosim_step", torch.cat([x.to(dev) for x in g]), want,
+                       f"{name} on {mesh} against one launch at Z={Z}")
+        # every decision class among the rows without an override, from
+        # the one launch and from the mesh (at Z = 1 no such row can be
+        # definite-1: they all see the one count)
+        ovr = cols["ovr_mask"]
+        classes = cosim_classes(*(x.cpu().numpy() for x in got[:2]), ovr, n)
+        mesh_classes = cosim_classes(*(torch.cat([x.cpu() for x in g]).numpy() for g in res[:2]),
+                                     ovr, n)
+        if min(classes[: 2 if Z == 1 else 3]) < 1 or mesh_classes != classes:
+            fail(f"cosim_step at Z={Z}: rows without an override came out (definite-0, nondef, "
+                 f"definite-1) {classes}, on {mesh} {mesh_classes}")
+        counts = [int(x.sum()) for x in got]
+        log(f"cosim_step n={n} Z={Z}: hist and step byte-equal to plain (accepted, nondef, "
+            f"dec_fail {counts}; rows without an override definite-0, nondef, definite-1 "
+            f"{classes}; commit in place), {mesh} byte-equal to one launch")
+    # timed at the scale run's shape, on the card's timeline
+    n, Z = COSIM_TIME_N, COSIM_TIME_Z
+    cols, reach = cosim_columns(gen, n, Z, n)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+    args = [t[k] for k in COSIM_ROWS[:3]] + [torch.from_numpy(reach).to(dev)] + [
+        t[k] for k in COSIM_ROWS[3:]] + [n - n // 50, (n - 1) // 3]
+    hist_args = (t["dst_on"], t["zone"], Z)
+    for fn in (CS.cosim_step, CS.cosim_step_plain, CS.cosim_hist, CS.cosim_hist_plain):
+        fn(*(hist_args if "hist" in fn.__name__ else args))  # warm-up
+    # the kernels on the card's timeline; the plain versions' dozens of
+    # torch calls a step take longer to enqueue than the card to run them,
+    # so they are timed by events around calls paced by the host
+    out["step_ms"] = device_timed(lambda: CS.cosim_step(*args), COSIM_REPS)
+    out["step_plain_ms"] = timed(lambda: CS.cosim_step_plain(*args), COSIM_REPS)[1]
+    out["hist_ms"] = device_timed(lambda: CS.cosim_hist(*hist_args), COSIM_REPS)
+    out["hist_plain_ms"] = timed(lambda: CS.cosim_hist_plain(*hist_args), COSIM_REPS)[1]
+    # the library call that makes the same histogram: one index_add_ (its
+    # index and source converted beforehand, into a kept accumulator)
+    zone64, dst32 = t["zone"].to(torch.int64), t["dst_on"].to(torch.int32)
+    acc = torch.zeros(Z, dtype=torch.int32, device=dev)
+    acc.index_add_(0, zone64, dst32)
+    out["hist_library_ms"] = device_timed(lambda: acc.index_add_(0, zone64, dst32), COSIM_REPS)
+    out["step_bound"] = cosim_bound(n, Z)
+    out["hist_bound"] = cosim_bound(n, Z, hist_only=True)
+    log(f"cosim_step n={n} Z={Z} on the card's timeline ({COSIM_REPS} enqueued behind a sleep; "
+        f"the plain versions paced by the host): "
+        f"step (hist + decision) {out['step_ms']} ms, plain {out['step_plain_ms']} ms, bound "
+        f"{out['step_bound'][0]} ms (bytes); hist alone {out['hist_ms']} ms, plain "
+        f"{out['hist_plain_ms']} ms, index_add_ {out['hist_library_ms']} ms, bound "
+        f"{out['hist_bound'][0]} ms")
+    del t, args
+
+    # (b) bench_cosim's largest row, then a CPU twin and a mesh twin
+    wan = W.WanModel(seed=COSIM_WAN_SEED, topology=W.DEFAULT_TOPOLOGY,
+                     latency=W.LatencyModel("lognormal"), deadline_ms=400.0)
+    dead = set(range(COSIM_N - COSIM_DEAD, COSIM_N))
+
+    def scale_run(what: str, **kw):
+        t0 = time.perf_counter()
+        kw.setdefault("device", dev)
+        sim = PackedHoneyBadgerCosim(COSIM_N, random.Random(COSIM_SEED), wan=wan, **kw)
+        init_s = time.perf_counter() - t0
+        runs = [sim.run_epoch_packed(dead=dead) for _ in range(1 + COSIM_WARM)]
+        rate = statistics.median(s.epochs_per_s for s in runs[1:])
+        last = runs[-1]
+        log(f"cosim n={COSIM_N} {what}: init {init_s} s, cold epoch {runs[0].wall_s} s, warm "
+            f"median {rate} epochs/s (walls {[s.wall_s for s in runs[1:]]}), accepted "
+            f"{[s.accepted for s in runs]}, coin flips {[s.coin_flips for s in runs]}, peak RSS "
+            f"{last.peak_rss_bytes / 2**20} MiB, {last.bytes_per_validator} bytes/validator, "
+            f"{last.mesh_devices} shard(s); last step's phases " + json.dumps(sim.last_phases))
+        return sim, runs, {"init_s": init_s, "cold_s": runs[0].wall_s, "epochs_per_s": rate}
+
+    cuda_ec.reset_launches()
+    card, card_runs, out["scale"] = scale_run("on the card")
+    out["cosim100k"] = dict(cuda_ec.LAUNCHES)
+    epochs = 1 + COSIM_WARM
+    if card.mesh_devices == 1 and (out["cosim100k"]["cosim_hist"] != epochs
+                                   or out["cosim100k"]["cosim_step"] != epochs):
+        fail(f"the n={COSIM_N} scale run launched {out['cosim100k']}, not one hist and one "
+             f"step an epoch")
+    if not 0 < card_runs[-1].accepted <= COSIM_N - COSIM_DEAD:
+        fail(f"the n={COSIM_N} scale run accepted {card_runs[-1].accepted}")
+    host, host_runs, _ = scale_run("on the CPU (plain versions)", device="cpu")
+    cuda_ec.reset_launches()
+    sharded, mesh_runs, _ = scale_run(f"on {mesh}", mesh=mesh)
+    out["cosim100k_mesh"] = dict(cuda_ec.LAUNCHES)
+    if out["cosim100k_mesh"]["ring_permute"] < 1 or out["cosim100k_mesh"]["cosim_step"] < 1:
+        fail(f"the mesh scale run launched {out['cosim100k_mesh']}")
+    for what, runs, sim in (("CPU", host_runs, host), ("mesh", mesh_runs, sharded)):
+        if ([(s.accepted, s.coin_flips) for s in runs] != [(s.accepted, s.coin_flips)
+                                                            for s in card_runs]
+                or not np.array_equal(sim.commit_counts(), card.commit_counts())):
+            fail(f"the n={COSIM_N} {what} twin differs from the card's run")
+    log(f"cosim n={COSIM_N}: the CPU and {mesh} twins give the card's accepted counts, coin "
+        f"flips and commit_counts(); launches on the card {out['cosim100k']}, on the mesh "
+        f"{out['cosim100k_mesh']}")
+    del card, host, sharded
+
+    # (c) bench_cosim's equivalence leg: the dict plane on the card's
+    # backend against the packed queueing co-sim, then the WAN twin
+    cuda_ec.reset_launches()
+    legacy = VectorizedQueueingSim(COSIM_TWIN_N, random.Random(COSIM_TWIN_SEED),
+                                   batch_size=COSIM_TWIN_N, mock=True, ops=CudaBackend(device=dev))
+    packed = PackedQueueingCosim(COSIM_TWIN_N, random.Random(COSIM_TWIN_SEED),
+                                 batch_size=COSIM_TWIN_N, device=dev)
+    txs = [b"cosim-%06d" % i for i in range(2 * COSIM_TWIN_N)]
+    legacy.input_all(txs)
+    packed.input_all(txs)
+    dead = set(range(COSIM_TWIN_N - COSIM_TWIN_DEAD, COSIM_TWIN_N))
+    dict_s, packed_s = [], []
+    for e in range(COSIM_TWIN_EPOCHS):
+        t0 = time.perf_counter()
+        res_l = legacy.run_epoch(dead=dead)
+        t1 = time.perf_counter()
+        res_p = packed.run_epoch(dead=dead)
+        dict_s.append(t1 - t0)
+        packed_s.append(time.perf_counter() - t1)
+        if (res_l.batch != res_p.batch or res_l.accepted != res_p.accepted
+                or [x.compact() for x in res_l.fault_log] != [x.compact() for x in res_p.fault_log]
+                or res_l.agreement_epochs != res_p.agreement_epochs
+                or res_l.coin_flips != res_p.coin_flips):
+            fail(f"the packed queueing co-sim diverged from the dict plane at epoch {e}")
+    if legacy.rng.random() != packed.rng.random():
+        fail("the packed queueing co-sim's rng left the dict plane's")
+    log(f"cosim twin n={COSIM_TWIN_N} ({COSIM_TWIN_DEAD} dead, {len(txs)} txs, "
+        f"{COSIM_TWIN_EPOCHS} epochs): batches, accepted sets and fault logs equal; dict plane "
+        f"walls {dict_s} s, packed {packed_s} s; {len(res_p.batch.contributions)} contributions")
+
+    def test_model():
+        topo = W.GeoTopology(zones=("a", "b", "c"),
+                             delay_ms=((2, 80, 250), (80, 2, 120), (250, 120, 2)), weights=(6, 4, 3))
+        return W.WanModel(seed=11, topology=topo, latency=W.LatencyModel("pareto", alpha=1.5),
+                          deadline_ms=200.0, partitions=(W.PartitionWindow(1, 2, ((0, 1), (2,))),),
+                          failures=(W.CorrelatedFailure(2, 3, 2),),
+                          flash_crowds=(W.FlashCrowd(1, 2, 4.0),))
+
+    n = COSIM_WAN_N
+    model = test_model()
+    r_d, r_p = random.Random(5), random.Random(5)
+    dict_sim = VectorizedHoneyBadgerSim(n, r_d, mock=True, ops=CudaBackend(device=dev))
+    packed_sim = PackedHoneyBadgerCosim(n, r_p, wan=model, device=dev)
+    forged = {n - 1: {1: MK.MockDecryptionShare(b"\x00" * 32, b"\x00" * 32)}}
+    for e in range(COSIM_WAN_EPOCHS):
+        contribs = {i: [b"wan-%d-%d" % (e, i)] for i in range(n)}
+        kw = {"forged_dec": forged} if e == 0 else {}
+        a = dict_sim.run_epoch(contribs, wan=model, **kw)
+        b = packed_sim.run_epoch(contribs, **kw)
+        if (a.batch != b.batch or a.accepted != b.accepted or a.coin_flips != b.coin_flips
+                or [x.compact() for x in a.fault_log] != [x.compact() for x in b.fault_log]
+                or a.agreement_epochs != b.agreement_epochs):
+            fail(f"the n={n} WAN twin diverged at epoch {e}")
+        if e == 0 and [x.compact() for x in b.fault_log] != [f"{n - 1}:INVALID_DECRYPTION_SHARE"]:
+            fail(f"the n={n} WAN twin's forger was not attributed: {b.fault_log}")
+    if r_d.random() != r_p.random():
+        fail(f"the n={n} WAN twin's rngs diverged")
+    out["cosim_twin"] = dict(cuda_ec.LAUNCHES)
+    if out["cosim_twin"]["cosim_step"] != COSIM_TWIN_EPOCHS + COSIM_WAN_EPOCHS:
+        fail(f"the twins launched {out['cosim_twin']}")
+    log(f"cosim WAN twin n={n} ({COSIM_WAN_EPOCHS} epochs, partition, zone failure, one forger): "
+        f"equal to the dict plane with wan=; launches over (c) {out['cosim_twin']}")
+
+    # (d) hw= on the n = 64 real-BLS epoch, on the card and on the host
+    hw = HwQuality.from_flags(*HW_FLAGS)
+    contribs = {i: [b"e64-%d" % i] for i in range(EPOCH_NODES)}
+    cuda_ec.reset_launches()
+    res = VectorizedHoneyBadgerSim(EPOCH_NODES, random.Random(EPOCH_SEED), verify_honest=True,
+                                   hw=hw, ops=CudaBackend(device=dev)).run_epoch(contribs)
+    out["epoch64_hw"] = dict(cuda_ec.LAUNCHES)
+    host = VectorizedHoneyBadgerSim(EPOCH_NODES, random.Random(EPOCH_SEED), verify_honest=True,
+                                    hw=hw, ops=CpuBackend()).run_epoch(contribs)
+
+    def network(v):
+        return (v.rounds, v.per_node_msgs, v.per_node_bytes, v.network_s,
+                {k: x for k, x in v.breakdown.items() if not k.startswith("cpu:")})
+
+    if out["epoch64_hw"]["win_g1"] < 1:
+        fail(f"the hw= epoch launched {out['epoch64_hw']}, not win_g1")
+    if res.batch.contributions != contribs or res.batch != host.batch:
+        fail("the hw= epoch's batch is wrong or differs from the host twin's")
+    v = res.virtual
+    if network(v) != network(host.virtual) or v.total_s != v.network_s + v.cpu_s:
+        fail("the hw= epoch's network terms differ from the host twin's")
+    log(f"epoch n={EPOCH_NODES} hw=HwQuality.from_flags{HW_FLAGS} on the card: virtual total "
+        f"{v.total_s} s = network {v.network_s} s + cpu {v.cpu_s} s, {v.rounds} rounds, "
+        f"{v.per_node_msgs} msgs and {v.per_node_bytes} bytes a node (network terms equal to "
+        f"the host twin's); launches {out['epoch64_hw']}; breakdown " + json.dumps(v.breakdown))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -834,7 +1201,8 @@ def main() -> int:
     # fr_matmul's byte planes byte for byte, fr_matmul's canonical words
     # word for word
     compared = {"win_g1": "canonical", "win_g2": "canonical", "scan_g1": "canonical",
-                "ring_permute": "bytes", "fr_matmul": "words", "fr_planes": "bytes"}
+                "ring_permute": "bytes", "fr_matmul": "words", "fr_planes": "bytes",
+                "cosim_hist": "bytes", "cosim_step": "bytes"}
 
     def record_err(name: str, got, plain, what: str) -> None:
         torch.cuda.synchronize()
@@ -1644,7 +2012,10 @@ def main() -> int:
     # -- 5. the sequential engines ----------------------------------------
     seq_launches = sequential_phase()
 
-    # -- 6. report ------------------------------------------------------
+    # -- 6. the packed co-simulation ----------------------------------------
+    cosim = cosim_phase(mesh, record_err, timed, device_timed)
+
+    # -- 7. report ------------------------------------------------------
     by_path = {
         "win_g1": {"flush": flush_launches["win_g1"], "mesh_flush": mesh_launches["win_g1"],
                    "epoch64": epoch64_launches["win_g1"],
@@ -1661,7 +2032,11 @@ def main() -> int:
         "fr_planes": {"fr_check": fr_check_launches["fr_planes"],
                       "dkg_coeffs": coeffs_launches["fr_planes"],
                       "churn1024": churn_launches["fr_planes"]},
+        **{name: {path: cosim[path][name] for path in ("cosim100k", "cosim100k_mesh", "cosim_twin")}
+           for name in ("cosim_hist", "cosim_step")},
     }
+    by_path["win_g1"]["epoch64_hw"] = cosim["epoch64_hw"]["win_g1"]
+    by_path["ring_permute"]["cosim100k_mesh"] = cosim["cosim100k_mesh"]["ring_permute"]
 
     def row(name, replaces, launches, ms, plain_ms, bound, library_ms=None, source=None):
         # library_ms None: no PyTorch call computes an EC scalar multiplication
@@ -1719,6 +2094,25 @@ def main() -> int:
                 replaces_kind="the limb layout of an XLA program's dot_general "
                               "(fr_jax._matmul_limbs), not a Pallas kernel",
                 shape=[TP1, N_CH],
+            ),
+            dict(
+                # library_ms None: no one PyTorch call computes the step (a
+                # histogram, a reach-row dot and the agreement algebra); ms is
+                # the whole step, cosim_hist's launch included
+                row("cosim_step", "hbbft_tpu/parallel/mesh.py:473",
+                    cosim["cosim100k"]["cosim_step"], cosim["step_ms"], cosim["step_plain_ms"],
+                    cosim["step_bound"]),
+                replaces_kind="an XLA program (packed_cosim_step_fn's _body), not a Pallas kernel",
+                shape=[COSIM_TIME_N, COSIM_TIME_Z], scale=cosim["scale"],
+            ),
+            dict(
+                # library_ms: one index_add_ of the same counts (zones in range)
+                row("cosim_hist", "hbbft_tpu/parallel/mesh.py:473",
+                    cosim["cosim100k"]["cosim_hist"], cosim["hist_ms"], cosim["hist_plain_ms"],
+                    cosim["hist_bound"], cosim["hist_library_ms"], source="cosim_step"),
+                replaces_kind="the zone histogram of an XLA program (packed_cosim_step_fn's "
+                              "_body), not a Pallas kernel",
+                shape=[COSIM_TIME_N, COSIM_TIME_Z],
             ),
         ]
     }

@@ -24,7 +24,12 @@ sequential protocol engines every validator runs (``protocols/``:
 Broadcast, Agreement, CommonSubset, HoneyBadger, SyncKeyGen,
 DynamicHoneyBadger, QueueingHoneyBadger) run on the adversarial test
 network of ``harness/network.py``, their share checks flushed in
-batches through the same backend.  The bit-serial G1 ladder
+batches through the same backend.  The packed co-simulation
+(``harness/cosim.py``: ``PackedHoneyBadgerCosim``,
+``PackedQueueingCosim``) keeps a whole network's agreement state as
+``[n]`` columns on the card and resolves each epoch with the
+``cosim_hist`` and ``cosim_step`` kernels (``csrc/cosim_step.cu``),
+under the WAN model of ``harness/wan.py``.  The bit-serial G1 ladder
 (``csrc/scan_g1.cu``) lies on no production path.
 
 Entry points run on the card unless the caller asks for the CPU:
@@ -32,6 +37,7 @@ Entry points run on the card unless the caller asks for the CPU:
 ``harness.epoch.VectorizedHoneyBadgerSim(n, rng)``,
 ``harness.dynamic.VectorizedDynamicSim(n, rng)``,
 ``harness.network.TestNetwork(...)`` without ``ops``,
+``harness.cosim.PackedHoneyBadgerCosim(n, rng)``,
 ``core.network_info.NetworkInfo.generate_map(...)`` and
 ``parallel.mesh.make_mesh(n)`` mean ``torch.device("cuda")`` and raise
 when CUDA is absent;

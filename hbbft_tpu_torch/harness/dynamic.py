@@ -25,9 +25,14 @@ A removed validator keeps observing; an added validator must have
 registered its individual key pair (``register_candidate``), mirroring
 ``Change::Add(id, pub_key)``.
 
-Not ported, as the epoch driver leaves them out: virtual-time accounting
-(``hw=``, and with it ``_add_dkg_virtual``; the signatures omit it), the
-WAN model (``wan=`` raises ``TypeError``) and the divergent queueing
+``wan=`` (a ``harness.wan`` model) makes its crashed nodes dead for the
+epoch before the contributions are wrapped (their pending votes stay
+queued) and is forwarded to the epoch driver; ``hw=`` (a
+``harness.simulation.HwQuality``) gives every epoch its virtual-time
+account, and the era-switch epoch's account gains the on-chain DKG's
+Part and Ack rounds and its wall (``_add_dkg_virtual``).
+
+Not ported, as the epoch driver leaves it out: the divergent queueing
 schedule (``divergent=`` and friends raise in the epoch driver).  The
 backend every node shares is ``ops``, the card's ``CudaBackend()`` by
 default; a device or kernel error raises out of ``run_epoch``.
@@ -52,6 +57,7 @@ from ..protocols.honey_badger import Batch
 from ..protocols.votes import SignedVote, Vote, VoteCounter
 from .dkg import DkgResult, VectorizedDkg
 from .epoch import EpochResult, TransactionQueueMixin, VectorizedHoneyBadgerSim
+from .wan import crashed_with
 
 
 @wire("DynContrib")
@@ -76,11 +82,6 @@ class DynamicEpochResult:
     fault_log: FaultLog
 
 
-def _no_wan(adv: Dict[str, Any]) -> None:
-    if "wan" in adv:
-        raise TypeError("the WAN model (wan=) is not part of the port")
-
-
 class VectorizedDynamicSim:
     """Era-aware co-simulation: vectorized HoneyBadger epochs with
     on-chain votes and DKG-backed membership changes at scale.
@@ -100,12 +101,14 @@ class VectorizedDynamicSim:
         verify_honest: bool = True,
         emit_minimal: bool = False,
         dkg_verify_honest: Optional[bool] = None,
+        hw: Any = None,
     ):
         self.rng = rng
         self.mock = mock
         self.ops = resolve_ops(ops)
         self.verify_honest = verify_honest
         self.emit_minimal = emit_minimal
+        self.hw = hw
         # DKG honest-check elision defaults to the epoch driver's flag
         self.dkg_verify_honest = verify_honest if dkg_verify_honest is None else dkg_verify_honest
         self.era = 0
@@ -135,6 +138,7 @@ class VectorizedDynamicSim:
             mock=self.mock,
             verify_honest=self.verify_honest,
             emit_minimal=self.emit_minimal,
+            hw=self.hw,
             reveal_mode="inline",
         )
         self.sim.epoch = self.epoch
@@ -190,8 +194,11 @@ class VectorizedDynamicSim:
         """One epoch: wrap contributions with pending votes, run the
         vectorized epoch, count the committed votes, and switch eras if
         a change wins (f+1 committed votes)."""
-        _no_wan(adv)
-        dead = set(dead or set())
+        # WAN-correlated crashes are dead for the whole epoch — their
+        # pending votes stay queued, like any silent node
+        wan, dead = crashed_with(adv.get("wan"), self.sim.n, self.sim.epoch, dead)
+        if wan is not None:
+            adv["wan"] = wan
         wrapped = {}
         for pid in sorted(self.sim.netinfos):
             if pid in dead:
@@ -225,10 +232,13 @@ class VectorizedDynamicSim:
         change_state: ChangeState = NoChange()
         if winner is not None:
             change_state = Complete(winner)
+            t0 = time.perf_counter()
             self._switch_era(winner)
             # recorded only once the switch happened: a failed switch
             # must not leave the join plan advertising it
             self._last_change = change_state
+            if self.hw is not None and res.virtual is not None:
+                self._add_dkg_virtual(res.virtual, time.perf_counter() - t0)
         return DynamicEpochResult(
             batch=batch,
             inner=res,
@@ -237,6 +247,38 @@ class VectorizedDynamicSim:
             validators=list(self.validators),
             fault_log=faults,
         )
+
+    def _add_dkg_virtual(self, virtual, dkg_wall: float) -> None:
+        """Fold the on-chain DKG's traffic and compute into the
+        era-switch epoch's virtual-time account: one Part round (every
+        dealer multicasts its bivariate commitment + N encrypted rows)
+        and one Ack round (every node multicasts one Ack per dealer,
+        each with N encrypted values) — message sizes per
+        ``sync_key_gen.rs:268-349`` shapes — plus the switch's wall as
+        the cpu term (dealing is per-dealer work but verification
+        dominates and is replicated per node, as for the epoch phases)."""
+        hw = self.hw
+        n = len(self.validators)
+        t = (n - 1) // 3
+        enc = 32 + 150  # one encrypted Fr value (ciphertext overhead)
+        part_size = (t + 1) ** 2 * 192 + n * ((t + 1) * 32 + 150)
+        ack_size = n * enc + 8
+        rounds = [
+            ("dkg-part", (n - 1) * part_size, n - 1),
+            ("dkg-ack", n * (n - 1) * ack_size, n * (n - 1)),
+        ]
+        cpu = dkg_wall * 100.0 / hw.cpu_factor
+        for label, bytes_, msgs in rounds:
+            secs = bytes_ * hw.inv_bw + hw.latency
+            virtual.breakdown[label] = secs
+            virtual.network_s += secs
+            virtual.total_s += secs
+            virtual.rounds += 1
+            virtual.per_node_msgs += msgs
+            virtual.per_node_bytes += bytes_
+        virtual.breakdown["cpu:dkg"] = cpu
+        virtual.cpu_s += cpu
+        virtual.total_s += cpu
 
     # -- the era switch ----------------------------------------------------
 
@@ -314,6 +356,7 @@ class VectorizedDynamicQueueingSim(TransactionQueueMixin):
         verify_honest: bool = True,
         emit_minimal: bool = False,
         dkg_verify_honest: Optional[bool] = None,
+        hw: Any = None,
     ):
         self.dyn = VectorizedDynamicSim(
             n,
@@ -323,6 +366,7 @@ class VectorizedDynamicQueueingSim(TransactionQueueMixin):
             verify_honest=verify_honest,
             emit_minimal=emit_minimal,
             dkg_verify_honest=dkg_verify_honest,
+            hw=hw,
         )
         self.rng = rng
         self.batch_size = batch_size
@@ -346,8 +390,11 @@ class VectorizedDynamicQueueingSim(TransactionQueueMixin):
         return self.dyn.era
 
     def run_epoch(self, dead: Optional[Set[Any]] = None, **adv) -> DynamicEpochResult:
-        _no_wan(adv)
-        dead = set(dead or set())
+        # crashes merge BEFORE queue sampling (crashed nodes draw no
+        # proposal) — the same order the packed co-sim uses
+        wan, dead = crashed_with(adv.get("wan"), self.dyn.sim.n, self.dyn.sim.epoch, dead)
+        if wan is not None:
+            adv["wan"] = wan
         contribs = self._sample_contribs(dead)
         res = self.dyn.run_epoch(contribs, dead=dead, **adv)
         self._drain(list(res.batch.tx_iter()))

@@ -27,13 +27,17 @@ crypto batched:
 Byzantine surfaces mirror the reference adversaries: ``dead`` (silent),
 per-proposer echo-shard corruption, forged decryption shares, forged
 coin shares, withheld (``late``, ``late_subset``) broadcasts, and
-Byzantine BVal/Aux vote injection.  ``reveal_mode="ordered"`` returns at
+Byzantine BVal/Aux vote injection.  ``wan=`` (``harness/wan.py``)
+materializes a WAN model's epoch view as crashed nodes and per-proposer
+timely subsets, the view the packed co-sim (``harness/cosim.py``)
+contracts zone-wise.  ``hw=`` (``harness/simulation.HwQuality``) adds
+an analytic virtual-time account to every result
+(:class:`VirtualEpochTime`).  ``reveal_mode="ordered"`` returns at
 ordered-commit and reveals later in one cross-epoch flush.
 
 Not ported yet (the signatures omit them, so passing one is a
 ``TypeError``): the divergent view-class schedules (``divergent=``,
-``div_schedule=``), the WAN model (``wan=``), virtual-time accounting
-(``hw=``), the staged deep pipeline (``pipeline="deep"`` raises
+``div_schedule=``), the staged deep pipeline (``pipeline="deep"`` raises
 ``ValueError``), the trace recorder's events and the process-wide
 environment defaults of ``speculative`` and ``reveal_mode``.  A device
 or kernel failure raises out of ``run_epoch``; nothing falls back to the
@@ -44,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 import time as _time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
@@ -70,6 +75,7 @@ from .vectorized import (
     decrypt_round,
     decrypt_rounds_deferred,
 )
+from .wan import crashed_with
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +476,32 @@ class VectorizedAgreement:
 
 
 @dataclasses.dataclass
+class VirtualEpochTime:
+    """Analytic virtual-time account of one synchronous epoch under
+    the ``HwQuality`` model (batched flushes feeding back into
+    virtual-time accounting — the epoch-latency statistic the
+    event-driven simulator cannot produce at north-star scale).
+
+    Model, mirroring ``examples/simulation.rs:183-223`` semantics on
+    the synchronous round structure: every protocol round costs each
+    node its upstream serialization (bytes × inv_bw) plus one network
+    latency, and each crypto/bookkeeping phase costs the co-simulated
+    wall time scaled by the cpu factor (the deduplicated batch work IS
+    one node's per-epoch work for the verification phases — every real
+    node checks all distinct shares/proofs).  All correct nodes are
+    symmetric under this schedule, so min and max epoch latency
+    coincide."""
+
+    total_s: float  # simulated seconds for the epoch
+    rounds: int  # protocol rounds (one latency each)
+    per_node_msgs: int  # messages each node sent
+    per_node_bytes: int  # upstream bytes each node serialized
+    network_s: float  # serialization + latency share
+    cpu_s: float  # scaled compute share
+    breakdown: Dict[str, float]
+
+
+@dataclasses.dataclass
 class _PendingReveal:
     """One ordered-but-unrevealed epoch queued by the order-then-reveal
     driver: everything :func:`~.vectorized.decrypt_rounds_deferred`
@@ -503,6 +535,7 @@ class EpochResult:
     agreement_epochs: Dict[Any, int]
     observer_batch: Optional[Batch] = None  # the non-validator lane's
     # independently derived batch (``run_epoch(observe=True)``)
+    virtual: Optional[VirtualEpochTime] = None  # when hw= is set
     phases: Optional[Dict[str, float]] = None  # wall seconds per epoch
     # phase: propose / rbc / agreement / decrypt / assembly, the decrypt
     # round's (dec_*) and the flush's (flush_*) stages, commit_latency
@@ -524,7 +557,9 @@ class VectorizedHoneyBadgerSim:
     senders; ``speculative=True`` combines first and verifies the
     combined result (``decrypt_round``); ``reveal_mode="ordered"``
     decouples ordered-commit from the reveal (at most
-    ``max_outstanding_reveals`` epochs wait before a forced flush).
+    ``max_outstanding_reveals`` epochs wait before a forced flush);
+    ``hw`` (a ``harness.simulation.HwQuality``) adds the virtual-time
+    account ``EpochResult.virtual`` (incompatible with ordered reveals).
     """
 
     def __init__(
@@ -535,6 +570,7 @@ class VectorizedHoneyBadgerSim:
         ops: Any = None,
         verify_honest: bool = True,
         emit_minimal: bool = False,
+        hw: Any = None,
         speculative: bool = False,
         reveal_mode: str = "inline",
         max_outstanding_reveals: int = 4,
@@ -546,6 +582,7 @@ class VectorizedHoneyBadgerSim:
             mock,
             verify_honest,
             emit_minimal,
+            hw,
             speculative,
             reveal_mode,
             max_outstanding_reveals,
@@ -559,6 +596,7 @@ class VectorizedHoneyBadgerSim:
         mock: bool = False,
         verify_honest: bool = True,
         emit_minimal: bool = False,
+        hw: Any = None,
         speculative: bool = False,
         reveal_mode: str = "inline",
         max_outstanding_reveals: int = 4,
@@ -573,6 +611,7 @@ class VectorizedHoneyBadgerSim:
             mock,
             verify_honest,
             emit_minimal,
+            hw,
             speculative,
             reveal_mode,
             max_outstanding_reveals,
@@ -586,6 +625,7 @@ class VectorizedHoneyBadgerSim:
         mock,
         verify_honest,
         emit_minimal,
+        hw,
         speculative,
         reveal_mode,
         max_outstanding_reveals,
@@ -602,6 +642,7 @@ class VectorizedHoneyBadgerSim:
         self.max_outstanding_reveals = max(1, int(max_outstanding_reveals))
         self._pending_reveals: List[_PendingReveal] = []
         self._ordered_seq = 0
+        self.hw = hw  # Optional[simulation.HwQuality]: virtual time
         self.netinfos = netinfos
         ref = netinfos[sorted(netinfos)[0]]
         self.ref = ref
@@ -627,6 +668,7 @@ class VectorizedHoneyBadgerSim:
         adv_aux: Optional[Dict[Any, Tuple[int, int]]] = None,
         forged_coin: Optional[Set[Any]] = None,
         late_subset: Optional[Dict[Any, Set[Any]]] = None,
+        wan: Optional[Any] = None,
     ) -> EpochResult:
         """Advance every correct node through one complete epoch.
 
@@ -641,8 +683,27 @@ class VectorizedHoneyBadgerSim:
         ``forged_coin``: ``VectorizedAgreement.run`` semantics.
         ``late_subset``: proposer → the nodes whose copy of that
         proposer's broadcast completes before the agreement phase.
+        ``wan``: a ``harness.wan.WanModel`` / bound ``WanSchedule`` —
+        materialized for this epoch as crashed nodes (merged into
+        ``dead``) and per-proposer timely-delivery subsets (merged into
+        ``late_subset``, the caller's entries winning), the same epoch
+        view the packed co-sim (``harness/cosim.py``) consumes
+        zone-factored; equal-seeded runs of the two planes under one
+        model are byte-identical.
         """
         dead = set(dead or set())
+        if wan is not None:
+            if hasattr(wan, "bind"):
+                wan = wan.bind(self.n)
+            wan_dead, wan_subset = wan.twin_kwargs(
+                self.epoch,
+                [pid for pid in sorted(self.netinfos) if pid in contributions],
+                dead=dead,
+            )
+            dead = wan_dead
+            merged = dict(wan_subset)
+            merged.update(late_subset or {})
+            late_subset = merged or None
         late = set(late or set())
         corrupt_shards = corrupt_shards or {}
         forged_dec = forged_dec or {}
@@ -711,6 +772,12 @@ class VectorizedHoneyBadgerSim:
                     "lane (the observer derives its batch from decryption "
                     "shares, which have not been emitted at ordered-commit "
                     "time)"
+                )
+            if self.hw is not None:
+                raise ValueError(
+                    "reveal_mode='ordered' is incompatible with "
+                    "virtual-time accounting (hw=): the deferred "
+                    "decrypt wall belongs to a later flush"
                 )
             # backpressure: ordering stalls — by revealing — once
             # max_outstanding_reveals epochs are ordered but unrevealed
@@ -844,6 +911,14 @@ class VectorizedHoneyBadgerSim:
                 faults.add(pid, FaultKind.BATCH_DESERIALIZATION_FAILED)
         batch = Batch(self.epoch, out_contribs)
         phases["assembly"] = _time.perf_counter() - _t_dec
+        virtual = None
+        if self.hw is not None:
+            walls = {
+                k: phases[k]
+                for k in ("propose", "rbc", "agreement", "decrypt", "assembly")
+                if k in phases
+            }
+            virtual = self._virtual_account(payloads, res, cts, walls=walls)
 
         # 7. observer lane (optional): derive the batch again from
         # public traffic only, with no secret key share
@@ -867,6 +942,7 @@ class VectorizedHoneyBadgerSim:
             shares_verified=dec.shares_verified,
             agreement_epochs=res.epochs_used,
             observer_batch=observer_batch,
+            virtual=virtual,
             phases=phases,
         )
 
@@ -1037,13 +1113,16 @@ class VectorizedHoneyBadgerSim:
         thread completes epoch e's agreement and decryption flush.
         Outcomes are bit-identical to the sequential loop
         (``pipeline=False``).  ``epoch_kwargs`` are forwarded to every
-        epoch.  ``pipeline="deep"`` (the reference's staging-FIFO
-        driver) is not ported and raises ``ValueError``."""
+        epoch.  With a virtual-time ``hw`` model the driver runs the
+        epochs one after another: overlapped wall clocks would corrupt
+        the measured-phase account.  ``pipeline="deep"`` (the
+        reference's staging-FIFO driver) is not ported and raises
+        ``ValueError``."""
         if pipeline == "deep":
             raise ValueError("pipeline='deep' (the staged driver) is not ported")
         seq = list(contributions_seq)
         dead = set(dead or set())
-        if not pipeline or len(seq) <= 1:
+        if not pipeline or len(seq) <= 1 or self.hw is not None:
             results = [self.run_epoch(c, dead=dead, **epoch_kwargs) for c in seq]
             if self.reveal_mode == "ordered":
                 self.flush_reveals()  # results are filled in place
@@ -1104,6 +1183,80 @@ class VectorizedHoneyBadgerSim:
         if self.reveal_mode == "ordered":
             self.flush_reveals()  # results are filled in place
         return results
+
+    # -- virtual-time accounting -------------------------------------------
+
+    def _virtual_account(
+        self,
+        payloads: Dict[Any, bytes],
+        res: AgreementResult,
+        cts: Dict[Any, Any],
+        walls: Dict[str, float],
+    ) -> VirtualEpochTime:
+        """Simulated epoch latency under ``self.hw`` (see
+        :class:`VirtualEpochTime` for the model)."""
+        hw = self.hw
+        n = self.n
+        P = len(payloads)  # broadcast instances
+        k = self.data
+        max_payload = max((len(v) for v in payloads.values()), default=0) + 4
+        sym = getattr(self.codec, "symbol", 1)
+        shard = max(-(-max_payload // k), 1)
+        shard = -(-shard // sym) * sym
+        proof = 32 * (math.ceil(math.log2(max(n, 2))) + 1) + 8
+        s_value = shard + proof
+        s_ready = 48
+        s_bool = 24
+        s_share = 80  # decryption/signature share + tag/nonce overhead
+
+        rounds = []  # (label, per-node upstream bytes, per-node msgs)
+        # Value: each proposer unicasts one proof per node
+        rounds.append(("value", (n - 1) * s_value, n - 1))
+        # Echo: every node multicasts its proof for every instance
+        rounds.append(("echo", P * (n - 1) * s_value, P * (n - 1)))
+        # Ready: every node multicasts a root hash per instance
+        rounds.append(("ready", P * (n - 1) * s_ready, P * (n - 1)))
+        # Agreement epochs: BVal + Aux from the instances still ACTIVE
+        # at that epoch (decided instances stop sending — counted from
+        # the per-instance deciding epochs), plus Conf + coin-share
+        # rounds before each real coin (schedule epochs ≡ 2 mod 3,
+        # agreement.rs:314-328)
+        ag_epochs = max(res.epochs_used.values(), default=0) + 1
+        for e in range(ag_epochs):
+            active = sum(1 for v in res.epochs_used.values() if v >= e)
+            rounds.append(("bval-%d" % e, active * (n - 1) * s_bool, active * (n - 1)))
+            rounds.append(("aux-%d" % e, active * (n - 1) * s_bool, active * (n - 1)))
+            if e % 3 == 2 and active:
+                rounds.append(("conf-%d" % e, active * (n - 1) * s_bool, active * (n - 1)))
+                rounds.append(("coin-%d" % e, active * (n - 1) * s_share, active * (n - 1)))
+        # Decryption: one share per accepted ciphertext to every node
+        rounds.append(("decshares", len(cts) * (n - 1) * s_share, len(cts) * (n - 1)))
+
+        network_s = sum(b * hw.inv_bw + hw.latency for _, b, _ in rounds)
+        # cpu: verification/bookkeeping phases are replicated per node
+        # (every real node checks all distinct shares/proofs — the
+        # batch wall IS one node's work); the PROPOSE phase is
+        # per-proposer (each node encrypts only its own contribution),
+        # so its wall is divided by the proposer count
+        scale = 100.0 / hw.cpu_factor
+        cpu_parts = {}
+        for kk, v in walls.items():
+            if kk == "propose":
+                cpu_parts["cpu:" + kk] = v * scale / max(P, 1)
+            else:
+                cpu_parts["cpu:" + kk] = v * scale
+        cpu_s = sum(cpu_parts.values())
+        breakdown = {label: b * hw.inv_bw + hw.latency for label, b, _ in rounds}
+        breakdown.update(cpu_parts)
+        return VirtualEpochTime(
+            total_s=network_s + cpu_s,
+            rounds=len(rounds),
+            per_node_msgs=sum(m for _, _, m in rounds),
+            per_node_bytes=sum(b for _, b, _ in rounds),
+            network_s=network_s,
+            cpu_s=cpu_s,
+            breakdown=breakdown,
+        )
 
     # -- observer lane ------------------------------------------------------
 
@@ -1532,6 +1685,7 @@ class VectorizedQueueingSim(TransactionQueueMixin):
         ops: Any = None,
         verify_honest: bool = True,
         emit_minimal: bool = False,
+        hw: Any = None,
     ):
         # the queue drains each epoch's committed txs immediately, so the
         # batch must exist at run_epoch return: inline reveals
@@ -1542,6 +1696,7 @@ class VectorizedQueueingSim(TransactionQueueMixin):
             ops=ops,
             verify_honest=verify_honest,
             emit_minimal=emit_minimal,
+            hw=hw,
             reveal_mode="inline",
         )
         self.rng = rng
@@ -1552,7 +1707,12 @@ class VectorizedQueueingSim(TransactionQueueMixin):
         return sorted(self.sim.netinfos)
 
     def run_epoch(self, dead: Optional[Set[Any]] = None, **adv) -> EpochResult:
-        dead = set(dead or set())
+        # a WAN-crashed node draws no proposal: the crash set is merged
+        # BEFORE queue sampling, so the rng sequence matches the packed
+        # co-sim's (which samples post-merge)
+        wan, dead = crashed_with(adv.get("wan"), self.sim.n, self.sim.epoch, dead)
+        if wan is not None:
+            adv["wan"] = wan
         contribs = self._sample_contribs(dead)
         result = self.sim.run_epoch(contribs, dead=dead, **adv)
         self._drain(list(result.batch.tx_iter()))

@@ -13,13 +13,14 @@ that the vectorized HoneyBadger epoch (``harness/epoch.py``) runs:
   batching façade (``BatchingBackend.prefetch`` → the card), lookups
   with per-sender fault attribution, and the Lagrange combines;
 - ``decrypt_rounds_deferred``: the same for several ordered-but-
-  unrevealed epochs with the crypto fused across them.
+  unrevealed epochs with the crypto fused across them;
+- ``packed_decrypt_attribution``: the packed co-simulation's replay of
+  ``decrypt_round``'s fault attribution from counts.
 
 Equivalence (the reference's argument): Lagrange interpolation yields
 the unique result from any t+1 valid shares, and each distinct share is
 verified once, so outcomes and fault attribution equal the sequential
-protocol's.  The single-phase round classes and the co-sim's
-``packed_decrypt_attribution`` are not ported yet.
+protocol's.  The single-phase round classes are not ported yet.
 """
 
 from __future__ import annotations
@@ -628,3 +629,34 @@ def decrypt_rounds_deferred(
         )
         for ri in range(len(requests))
     ]
+
+
+def packed_decrypt_attribution(
+    accepted: List[Any],
+    forged: Dict[Any, Dict[Any, Any]],
+    dead: Set[Any],
+    faults: FaultLog,
+    failed,
+) -> None:
+    """Replay :func:`decrypt_round`'s fault attribution from aggregate
+    counts — the packed co-simulation's O(adversaries) mirror of the
+    per-share loop above, kept next to it so the two orderings can
+    never drift apart.
+
+    The per-share loop walks entries nid-major (sorted senders × sorted
+    proposers) and flags each forging sender ONCE at its first invalid
+    share, so: (1) every live forger with at least one forged share
+    aimed at an accepted ciphertext gets ``INVALID_DECRYPTION_SHARE``
+    in sorted-sender order; then (2) every accepted proposer whose
+    valid-share count collapsed to ≤ f gets ``SHARE_DECRYPTION_FAILED``
+    in sorted-proposer order (``failed(pid) -> bool``, the caller's
+    count check).  ``accepted`` must already be sorted."""
+    acc = set(accepted)
+    for nid in sorted(forged):
+        if nid in dead:
+            continue
+        if any(pid in acc for pid in forged[nid]):
+            faults.add(nid, FaultKind.INVALID_DECRYPTION_SHARE)
+    for pid in accepted:
+        if failed(pid):
+            faults.add(pid, FaultKind.SHARE_DECRYPTION_FAILED)

@@ -46,9 +46,10 @@ from . import limbs as LB
 from .ec import PointKernel, g1_kernel, g2_kernel
 
 # every kernel of the port, ``ops/fr.py``'s ``fr_matmul`` and ``fr_planes``
-# included
+# and ``ops/cosim_step.py``'s ``cosim_hist`` and ``cosim_step`` included
 LAUNCHES: Dict[str, int] = {
-    "win_g1": 0, "win_g2": 0, "scan_g1": 0, "ring_permute": 0, "fr_matmul": 0, "fr_planes": 0
+    "win_g1": 0, "win_g2": 0, "scan_g1": 0, "ring_permute": 0, "fr_matmul": 0, "fr_planes": 0,
+    "cosim_hist": 0, "cosim_step": 0,
 }
 
 # point shape each kernel takes after the leading K

@@ -5,7 +5,9 @@ a plain C entry point.  The scalar multiplications (``win_g1.cu``,
 ``win_g2.cu``, ``scan_g1.cu``) share the Montgomery field and ladders of
 ``csrc/bls_mont.cuh``; ``ring_permute.cu`` is a copy and includes no
 field code; ``fr_matmul.cu`` (the DKG's Fr products, ``ops/fr.py``)
-takes its arithmetic from ``csrc/fr_words.cuh``.  A kernel is compiled
+takes its arithmetic from ``csrc/fr_words.cuh``; ``cosim_step.cu`` (the
+packed co-simulation's step, ``ops/cosim_step.py``) holds the
+``cosim_hist`` and ``cosim_step`` kernels.  A kernel is compiled
 on first use by ``nvcc`` for Hopper (``-gencode
 arch=compute_90a,code=sm_90a``) into a shared library under
 ``build/hbbft_tpu_torch/`` at the repo root, and loaded with ``ctypes``.  The library's file name carries a hash of the source,
@@ -37,7 +39,8 @@ BUILD_DIR = PKG_DIR.parent / "build" / "hbbft_tpu_torch"
 
 CSRC = PKG_DIR / "csrc"
 SOURCES: Dict[str, pathlib.Path] = {
-    name: CSRC / f"{name}.cu" for name in ("win_g1", "win_g2", "scan_g1", "ring_permute", "fr_matmul")
+    name: CSRC / f"{name}.cu"
+    for name in ("win_g1", "win_g2", "scan_g1", "ring_permute", "fr_matmul", "cosim_step")
 }
 
 NVCC_FLAGS = [

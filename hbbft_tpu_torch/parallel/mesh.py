@@ -1,11 +1,15 @@
-"""A mesh of shards for the flush's G1 MSMs, and the ring all-reduce.
+"""A mesh of shards for the flush's G1 MSMs and the packed co-sim's
+step, and the ring all-reduce.
 
-The port of the mesh-sharded product flush of
-``hbbft_tpu/parallel/mesh.py``.  The reference shards the point axis of
-a product flush over a ``jax.sharding.Mesh`` under ``shard_map``: each
-shard unpacks its block of wires, runs the windowed kernel, builds its
-per-group trees, and the ``[G, 3, L]`` partials meet in a ring
-all-reduce of n−1 rounds of ``ring_permute`` and a complete EC add.
+The port of the mesh-sharded product flush and of the packed co-sim
+step (``packed_cosim_step_fn``) of ``hbbft_tpu/parallel/mesh.py``.  The
+reference shards the point axis of a product flush over a
+``jax.sharding.Mesh`` under ``shard_map``: each shard unpacks its block
+of wires, runs the windowed kernel, builds its per-group trees, and the
+``[G, 3, L]`` partials meet in a ring all-reduce of n−1 rounds of
+``ring_permute`` and a complete EC add.  The co-sim's step shards its
+instance axis the same way; its ``[Z]`` int32 zone histograms meet in
+the same ring with an integer add.
 
 Here a :class:`Mesh` is a list of shards, each a ``torch.device`` with
 its own CUDA stream.  Shard j of a mesh made on the card runs on
@@ -24,15 +28,16 @@ its XLA scan engine have no counterpart: PyTorch runs eagerly.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, List, Optional, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..ops import cosim_step as CS
 from ..ops import cuda_ec
 from ..ops import packed_msm as PM
-from ..ops.ec import PointKernel, g1_kernel
+from ..ops.ec import g1_kernel
 
 
 class Mesh:
@@ -99,13 +104,15 @@ def make_mesh(n_shards: Optional[int] = None, device: DeviceLike = None) -> Mesh
 
 
 def _ring_reduce(
-    local: List[torch.Tensor], kern: PointKernel, mesh: Mesh
+    local: List[torch.Tensor], add: Callable[[torch.Tensor, torch.Tensor], torch.Tensor], mesh: Mesh
 ) -> List[torch.Tensor]:
     """Ring all-reduce of per-shard partial sums (reference ``:266-285``):
-    n−1 rounds of ``ring_permute`` and ``acc = kern.add(acc, msg)``.
-    Each shard forwards the buffer it RECEIVED, not its accumulator, so
-    every shard folds in every other shard's partial once and the sum is
-    replicated; each shard's limbs equal the reference's."""
+    n−1 rounds of ``ring_permute`` and ``acc = add(acc, msg)`` on each
+    shard's stream (a complete EC add for the flush's points, an int32
+    add for the co-sim's histograms).  Each shard forwards the buffer it
+    RECEIVED, not its accumulator, so every shard folds in every other
+    shard's partial once and the sum is replicated; each shard's limbs
+    equal the reference's."""
     n = mesh.size
     if n <= 1:
         return list(local)
@@ -115,7 +122,7 @@ def _ring_reduce(
         msg = cuda_ec.ring_permute(msg, mesh)
         for j in range(n):
             with mesh.on(j):
-                acc[j] = kern.add(acc[j], msg[j])
+                acc[j] = add(acc[j], msg[j])
     return acc
 
 
@@ -145,7 +152,7 @@ def sharded_product_msm(
     for j in range(mesh.size):
         with mesh.on(j):
             local.append(PM._group_tree(prods[j], n_groups))
-    return mesh.join(_ring_reduce(local, kern, mesh))
+    return mesh.join(_ring_reduce(local, kern.add, mesh))
 
 
 def sharded_packed_msm(mesh: Mesh, wires: np.ndarray, sc: np.ndarray) -> torch.Tensor:
@@ -180,3 +187,82 @@ def sharded_packed_msm(mesh: Mesh, wires: np.ndarray, sc: np.ndarray) -> torch.T
     partials = mesh.join(partials)
     home = mesh.devices[0]
     return kern.tree_sum(torch.stack([p.to(home) for p in partials]))
+
+
+# ---------------------------------------------------------------------------
+# The packed co-simulation's step
+# ---------------------------------------------------------------------------
+# The co-sim (``harness/cosim.py``) keeps the whole network's agreement
+# state as [n] columns and resolves an epoch in one step.  The n² vote
+# relation factors through the WAN layer's zone product, so an instance's
+# yes votes are its proposer's reach row against the zone histogram of
+# the live, on-time receivers: O(n·Z), not O(n²) (``ops/cosim_step.py``).
+# On a mesh the instance axis is cut into equal shards; each histograms
+# its own receivers, and the [Z] partials — the whole cross-node message
+# exchange — meet in the ring (int32 adds: exact in any order, so every
+# result is byte-identical to one launch).
+
+Cols = Union[torch.Tensor, List[torch.Tensor]]
+
+
+def cosim_pad(n: int, n_dev: int) -> int:
+    """Instance-axis padding for the co-sim step (reference ``:572``):
+    zero rows are absorbing (a padded instance counts no votes and is
+    definite-0)."""
+    return -(-n // n_dev) * n_dev
+
+
+def packed_cosim_step_fn(mesh: Optional[Mesh], n_zones: int):
+    """Build the co-sim's per-epoch step (reference ``:473``).
+
+    ``run(prop_on, dst_on, zone, reach, ovr_mask, ovr_c1, forged_cnt,
+    commit, params)`` takes the nine columns of ``ops/cosim_step.py``:
+    with ``mesh`` None (or of one shard) each row column is one tensor,
+    on a mesh a list of shard j's block on ``mesh.devices[j]`` (equal
+    blocks, the instance axis padded by :func:`cosim_pad`); ``reach`` is
+    ``[n_zones, n_zones]`` uint8 on any device (copied to each shard's);
+    ``params`` is ``(n_live, f)``.  Returns ``(accepted, nondef,
+    dec_fail, commit)`` in the same form: int8 0/1 masks, and ``commit``
+    advanced in place — the same tensors, the counterpart of the
+    reference's donated buffer.  On the card each shard launches
+    ``cosim_hist`` and ``cosim_step`` on its stream, and a mesh of S
+    shards adds S − 1 ring rounds; the results are ready on the devices'
+    current streams.  CPU tensors run the plain versions."""
+    Z = int(n_zones)
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+
+    def run(
+        prop_on: Cols, dst_on: Cols, zone: Cols, reach: torch.Tensor, ovr_mask: Cols,
+        ovr_c1: Cols, forged_cnt: Cols, commit: Cols, params: Sequence[int],
+    ) -> Tuple[Cols, Cols, Cols, Cols]:
+        if tuple(reach.shape) != (Z, Z):
+            raise ValueError(f"reach must be [{Z}, {Z}] for this step, got {tuple(reach.shape)}")
+        n_live, f = (int(x) for x in params)
+        if mesh is None:
+            acc, nondef, fail = CS.cosim_step(
+                prop_on, dst_on, zone, reach.to(zone.device), ovr_mask, ovr_c1, forged_cnt,
+                commit, n_live, f,
+            )
+            return acc, nondef, fail, commit
+        if not all(len(c) == mesh.size for c in (prop_on, dst_on, zone, ovr_mask, ovr_c1,
+                                                 forged_cnt, commit)):
+            raise ValueError(f"every row column takes one block for each of {mesh.size} shards")
+        mesh.fork()
+        reaches, partial = [], []
+        for j, d in enumerate(mesh.devices):
+            with mesh.on(j):
+                reaches.append(reach.to(d))
+                partial.append(CS.cosim_hist(dst_on[j], zone[j], Z))
+        a = _ring_reduce(partial, torch.add, mesh)
+        outs = []
+        for j in range(mesh.size):
+            with mesh.on(j):
+                outs.append(CS.cosim_decide(
+                    prop_on[j], zone[j], reaches[j], ovr_mask[j], ovr_c1[j], forged_cnt[j],
+                    commit[j], a[j], n_live, f,
+                ))
+        acc, nondef, fail = (mesh.join([o[k] for o in outs]) for k in range(3))
+        return acc, nondef, fail, mesh.join(list(commit))
+
+    return run

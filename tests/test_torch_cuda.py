@@ -21,7 +21,11 @@ small product flush over that mesh must give the host's point.
 and the worst cases at k = 971, the bound it takes, with one ``fr_matmul``
 and two ``fr_planes`` launches a call; ``fr_planes`` must equal its plain
 version byte for byte; and the clean elided DKG must take it by default
-on the card and deal the CPU run's keys.
+on the card and deal the CPU run's keys.  ``cosim_hist`` and
+``cosim_step`` must equal their plain versions byte for byte at Z = 1, 5
+and 300 (above the kernels' shared-memory zone counters), one launch
+each, with the 4-shard mesh step equal to the one launch, and the packed
+co-sim on the card must equal its CPU run.
 """
 
 import random
@@ -368,3 +372,72 @@ def test_dkg_device_engine_on_the_card_matches_cpu(dev):
     )
     assert [card.shares[i].scalar for i in range(10)] == [cpu.shares[i].scalar for i in range(10)]
     assert card.pk_set.public_key().to_bytes() == cpu.pk_set.public_key().to_bytes()
+
+
+@pytest.mark.parametrize("Z", [1, 5, 300])
+def test_cosim_step_kernels_match_plain(dev, Z):
+    """cosim_hist and cosim_step on the card: byte for byte their plain
+    versions (the commit column advanced in place), one launch each, at
+    a Z above the kernels' 256 shared-memory zone counters too, with rows
+    without an override in every decision class; and the 4-shard mesh
+    step equal to the one launch."""
+    import chip_smoke as cs
+    from hbbft_tpu_torch.ops import cosim_step as CS
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.parallel.mesh import make_mesh, packed_cosim_step_fn
+
+    n = 10_004
+    cols, reach = cs.cosim_columns(np.random.default_rng(Z), n, Z, n)  # chip_smoke.py's columns
+    t = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+    order = ("prop_on", "dst_on", "zone", "ovr_mask", "ovr_c1", "forged_cnt")
+    args = [t[k] for k in order[:3]] + [torch.from_numpy(reach).to(dev)] + [t[k] for k in order[3:]]
+    ck, cp = t["commit"].clone(), t["commit"].clone()
+    before = dict(cuda_ec.LAUNCHES)
+    got = CS.cosim_step(*args, ck, n - 50, (n - 1) // 3)
+    assert cuda_ec.LAUNCHES["cosim_hist"] == before["cosim_hist"] + 1
+    assert cuda_ec.LAUNCHES["cosim_step"] == before["cosim_step"] + 1
+    want = CS.cosim_step_plain(*args, cp, n - 50, (n - 1) // 3)
+    torch.cuda.synchronize()
+    for g, w in zip(list(got) + [ck], list(want) + [cp]):
+        assert torch.equal(g, w)
+    classes = cs.cosim_classes(*(x.cpu().numpy() for x in got[:2]), cols["ovr_mask"], n)
+    assert min(classes[: 2 if Z == 1 else 3]) >= 1, classes  # definite-0, nondef, definite-1
+    mesh = make_mesh(4)
+    b = n // 4
+    shards = {k: [v[j * b : (j + 1) * b].clone().to(d) for j, d in enumerate(mesh.devices)]
+              for k, v in t.items()}
+    res = packed_cosim_step_fn(mesh, Z)(
+        *(shards[k] for k in order[:3]), args[3], *(shards[k] for k in order[3:]), shards["commit"],
+        (n - 50, (n - 1) // 3),
+    )
+    torch.cuda.synchronize()
+    for g, w in zip(res, list(got) + [ck]):
+        assert torch.equal(torch.cat([x.to(dev) for x in g]), w)
+    assert cs.cosim_classes(*(torch.cat([x.cpu() for x in g]).numpy() for g in res[:2]),
+                            cols["ovr_mask"], n) == classes
+
+
+def test_packed_cosim_on_the_card_matches_cpu(dev):
+    """The packed co-sim on the card (its columns, the kernels) and on the
+    CPU (the plain versions) under one WAN model: equal epochs and
+    commit counters, one cosim_hist and one cosim_step launch a step."""
+    from hbbft_tpu_torch.harness import wan as W
+    from hbbft_tpu_torch.harness.cosim import PackedHoneyBadgerCosim
+    from hbbft_tpu_torch.ops import cuda_ec
+
+    wan = W.WanModel(seed=0xC052, topology=W.DEFAULT_TOPOLOGY,
+                     latency=W.LatencyModel("lognormal"), deadline_ms=400.0)
+    card = PackedHoneyBadgerCosim(5000, random.Random(3), wan=wan)
+    cpu = PackedHoneyBadgerCosim(5000, random.Random(3), wan=wan, device="cpu")
+    cuda_ec.reset_launches()
+    for e in range(3):
+        dead = set(range(4900, 5000)) if e else None
+        a, b = card.run_epoch_packed(dead=dead), cpu.run_epoch_packed(dead=dead)
+        assert (a.accepted, a.coin_flips) == (b.accepted, b.coin_flips)
+    assert cuda_ec.LAUNCHES["cosim_hist"] == cuda_ec.LAUNCHES["cosim_step"] == 3
+    assert np.array_equal(card.commit_counts(), cpu.commit_counts())
+    contribs = {i: [b"c%d" % i] for i in range(5000)}
+    a = card.run_epoch(contribs, late_subset={7: set(range(100))})
+    b = cpu.run_epoch(contribs, late_subset={7: set(range(100))})
+    assert (a.batch, a.accepted, a.coin_flips, a.agreement_epochs) == (
+        b.batch, b.accepted, b.coin_flips, b.agreement_epochs)

@@ -12,7 +12,8 @@ with churn (mock n = 7, real n = 4), the join plan with an observer that
 verifies a signature of the new era, the churn with the DKG's device
 engine forced on both sides (its keys are sampled by different
 generators, so the user contributions and membership are compared), and
-the options the port leaves out raising.
+the options the port leaves out raising (``wan=`` and ``hw=`` are held
+against the reference in ``tests/test_torch_virtual.py``).
 """
 
 import random
@@ -206,17 +207,13 @@ def test_churn_with_the_device_dealing_plane(monkeypatch):
 
 def test_left_out_options_raise():
     sim = PD.VectorizedDynamicSim(4, random.Random(1), mock=True, ops=CudaBackend(device="cpu"))
-    with pytest.raises(TypeError):
-        PD.VectorizedDynamicSim(4, random.Random(1), mock=True, ops=CudaBackend(device="cpu"), hw=object())
-    with pytest.raises(TypeError):
-        sim.run_epoch({i: [b"x"] for i in range(4)}, wan=object())
     q = PD.VectorizedDynamicQueueingSim(4, random.Random(1), mock=True, ops=CudaBackend(device="cpu"))
     with pytest.raises(TypeError):
-        PD.VectorizedDynamicQueueingSim(4, random.Random(1), mock=True, ops=CudaBackend(device="cpu"), hw=1)
-    with pytest.raises(TypeError):
-        q.run_epoch(wan=object())
-    with pytest.raises(TypeError):
         sim.run_epoch({i: [b"x"] for i in range(4)}, divergent=object())
+    with pytest.raises(TypeError):
+        sim.run_epoch({i: [b"x"] for i in range(4)}, div_schedule=object())
+    with pytest.raises(TypeError):
+        q.run_epoch(divergent=object())
 
 
 def test_wire_tags_match_reference():

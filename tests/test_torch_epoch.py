@@ -315,11 +315,11 @@ def test_from_netinfos_over_the_reference_keys():
 def test_unported_options_are_refused():
     sim = PSim(4, random.Random(1), mock=True, ops=CudaBackend(device="cpu"))
     with pytest.raises(TypeError):
-        sim.run_epoch(_contribs(4), wan=object())
-    with pytest.raises(TypeError):
         sim.run_epoch(_contribs(4), divergent=object())
     with pytest.raises(TypeError):
-        PSim(4, random.Random(1), mock=True, ops=CudaBackend(device="cpu"), hw=object())
+        sim.run_epoch(_contribs(4), div_schedule=object())
+    with pytest.raises(ValueError):
+        sim.run_epochs([_contribs(4)] * 2, pipeline="deep")
 
 
 # ---------------------------------------------------------------------------

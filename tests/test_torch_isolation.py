@@ -71,6 +71,7 @@ def test_cuda_backend_raises_without_cuda(monkeypatch):
 
     from hbbft_tpu_torch.device import resolve_device
     from hbbft_tpu_torch.harness.batching import BatchingBackend
+    from hbbft_tpu_torch.harness.cosim import PackedHoneyBadgerCosim, PackedQueueingCosim
     from hbbft_tpu_torch.harness.dkg import VectorizedDkg
     from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
     from hbbft_tpu_torch.parallel.mesh import make_mesh
@@ -86,6 +87,11 @@ def test_cuda_backend_raises_without_cuda(monkeypatch):
         VectorizedDkg(range(4), 1, random.Random(0))  # the DKG's default is the card
     with pytest.raises(RuntimeError, match="CUDA"):
         make_mesh(4)  # a mesh's default shards are cards
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PackedHoneyBadgerCosim(4, random.Random(0))  # the co-sim's columns live on the card
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PackedQueueingCosim(4, random.Random(0))
+    assert PackedHoneyBadgerCosim(4, random.Random(0), device="cpu").device.type == "cpu"
     assert make_mesh(4, device="cpu").devices == [torch.device("cpu")] * 4
     assert VectorizedDkg(range(4), 1, random.Random(0), device="cpu").device.type == "cpu"
     assert CudaBackend(device="cpu").device == torch.device("cpu")

@@ -143,7 +143,7 @@ def test_ring_reduce_limbs_match_reference():
         _ref_sharded(lambda b: RM._ring_reduce(b, kern, N_DEV, "ppermute"))(x)
     )
     mesh = PM.make_mesh(N_DEV, device="cpu")
-    got = PM._ring_reduce(_split(x), PE.g1_kernel(), mesh)
+    got = PM._ring_reduce(_split(x), PE.g1_kernel().add, mesh)
     assert np.array_equal(torch.cat(got).numpy(), want)
     # replicated: every shard holds the same points
     sums = [[PE.g1_from_limbs(g[i].numpy()) for i in range(2)] for g in got]
