@@ -162,19 +162,27 @@ In order, and with no phase's failure caught:
    t + 1 of them combine and verify; ``win_g1`` launched at least once a
    non-empty flush, no fallback.
 6. **The packed co-simulation** — (a) ``cosim_step`` (the co-sim's
-   decision, ``ops/cosim_step.py``) and ``cosim_hist`` (its zone
-   histogram) against their plain versions on the card, byte for byte
-   (the three int8 masks and the int32 commit column advanced in place):
+   whole step on one card, one cooperative launch, ``ops/cosim_step.py``)
+   and ``cosim_hist`` (a mesh shard's zone histogram) against their plain
+   versions on the card, byte for byte (the three int8 masks and the
+   int32 commit column advanced in place):
    random columns at n = 100,003 (not a multiple of a block) with about
    1 % override rows and forged counts and a nonzero commit column, at
    Z = 1, 5 and 300 zones (300 is above the kernels' 256 shared-memory
    counters), their reach rows reaching a shuffled 1..Z zones so that
    the rows without an override come out definite-0, nondef and
    definite-1 (each class required, except definite-1 at Z = 1); the same
-   through ``packed_cosim_step_fn`` on the 4-shard mesh (the [Z]
-   partials ring-reduced by ``ring_permute``) against the one launch,
-   with the same classes; then both timed at n = 100,000, Z = 5 on the card's
-   timeline beside their plain versions and ``index_add_``.  (b)
+   through ``packed_cosim_step_fn`` on the 4-shard mesh (a ``cosim_hist``
+   and a decision launch a shard, the [Z] partials ring-reduced by
+   ``ring_permute``) against the one launch, with the same classes; then
+   the tail shapes n = 0, 1, 15, 16, 17, 4,097 at Z = 5 and 257 (the one
+   launch, ``cosim_hist`` and the mesh form called twice on one step
+   function) and column views one row in (not 16-byte aligned) against
+   the plain versions; then, at n = 100,000, Z = 5 on the card's
+   timeline, the one-launch step, the mesh form's two kernels on one
+   shard of the whole n, ``cosim_hist`` alone, ``index_add_`` and an
+   empty ``<<<1, 32>>>`` kernel's launch (the floor), with the step's
+   cooperative grid empty and crossing its grid barrier.  (b)
    ``bench_cosim``'s largest row: ``PackedHoneyBadgerCosim(100_000,
    Random(0xC053), wan=WanModel(seed=0xC052, DEFAULT_TOPOLOGY,
    LatencyModel("lognormal"), deadline_ms=400))``, the last 2,000 nodes
@@ -183,7 +191,8 @@ In order, and with no phase's failure caught:
    validator, the last step's phases); a ``device="cpu"`` twin and a
    ``make_mesh(4)`` twin must give the same accepted counts, coin flips
    and ``commit_counts()``; on one card the run launches one
-   ``cosim_hist`` and one ``cosim_step`` an epoch.  (c)
+   ``cosim_step`` an epoch and no ``cosim_hist``, on the mesh S of each
+   and S − 1 ring rounds an epoch.  (c)
    ``bench_cosim``'s equivalence leg, cut from n = 1024 to 256 (its
    n = 1024 dict plane takes ~34 s; ``scripts/torch_cosim_walls.py``
    keeps it): ``VectorizedQueueingSim(256, Random(0xC051),
@@ -219,13 +228,16 @@ In order, and with no phase's failure caught:
    word form's IMAD count and the limb form's int8 tensor-core count,
    and adds ``dealing_s`` / ``dealing_bound_ms`` for the churn's whole
    N = 1023 dealing; ``fr_planes``' is timed at the value grid's B side,
-   bound by its bytes; ``cosim_step``'s is timed at n = 100,000, Z = 5
-   (its ``cosim_hist`` launch included), its ``launches`` the n = 100,000
-   scale run's on one card (``cosim100k``), ``launches_by_path`` with the
-   mesh twin's (``cosim100k_mesh``) and the twins' (``cosim_twin``), and
-   its ``scale`` the scale run's init, cold wall and warm epochs/s;
-   ``cosim_hist``'s the same, its library call one ``index_add_``; both
-   bound by their bytes),
+   bound by its bytes; ``cosim_step``'s is the one launch timed at
+   n = 100,000, Z = 5, its ``launches`` the n = 100,000 scale run's on
+   one card (``cosim100k``), ``launches_by_path`` with the mesh twin's
+   (``cosim100k_mesh``) and the twins' (``cosim_twin``), its ``scale``
+   the scale run's init, cold wall and warm epochs/s, and it adds the
+   mesh form's two kernels (``mesh_pair_ms``), the launch floor
+   (``floor_ms``), the step's grid empty and crossing its barrier
+   (``grid_ms``, ``barrier_ms``); ``cosim_hist``'s is timed alone, its
+   ``launches`` the mesh twin's, its library call one ``index_add_``;
+   both bound by their bytes),
    the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -299,6 +311,11 @@ FR_REPS = 10
 # shared-memory zone counters) and its timed shape
 COSIM_CHECK_N = 100_003
 COSIM_ZS = (1, 5, 300)
+# the tail shapes: no row, one row, 15, 16 and 17 rows (a partial 4-row
+# chunk, whole chunks, one row past them) and a partial last block;
+# Z = 257 takes a second 256-zone window
+COSIM_TAIL_NS = (0, 1, 15, 16, 17, 4_097)
+COSIM_TAIL_ZS = (5, 257)
 COSIM_TIME_N = 100_000
 COSIM_TIME_Z = 5
 COSIM_REPS = 50
@@ -915,6 +932,85 @@ def cosim_bound(n: int, Z: int, hist_only: bool = False):
     return nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
+def cosim_tail_check(mesh, record_err) -> None:
+    """Phase 6(a)'s tail shapes on the card: at each n of COSIM_TAIL_NS
+    and Z of COSIM_TAIL_ZS, the one-launch step (one launch, none at
+    n = 0), ``cosim_hist`` and the mesh form, called twice on one step
+    function (its scratch and ticket reused), byte for byte against the
+    plain versions; then column views one row in (not 16-byte aligned)
+    through the one launch and the mesh form's two kernels."""
+    import torch
+
+    from hbbft_tpu_torch.ops import cosim_step as CS
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.parallel.mesh import cosim_pad, packed_cosim_step_fn
+
+    dev = torch.device("cuda")
+    gen = np.random.default_rng(SEED + 1)
+
+    def step_args(t, reach_t):
+        return [t[k] for k in COSIM_ROWS[:3]] + [reach_t] + [t[k] for k in COSIM_ROWS[3:6]]
+
+    for Z in COSIM_TAIL_ZS:
+        for n in COSIM_TAIL_NS:
+            n_pad = cosim_pad(n, mesh.size)
+            cols, reach = cosim_columns(gen, n, Z, n_pad)
+            n_live, f = n - n // 50, (n - 1) // 3
+            reach_t = torch.from_numpy(reach).to(dev)
+            t = {k: torch.from_numpy(v[:n].copy()).to(dev) for k, v in cols.items()}
+            what = f"at n={n}, Z={Z}"
+            commit_k, commit_p = t["commit"].clone(), t["commit"].clone()
+            before = dict(cuda_ec.LAUNCHES)
+            got = CS.cosim_step(*step_args(t, reach_t), commit_k, n_live, f)
+            launched = {k: cuda_ec.LAUNCHES[k] - before[k] for k in ("cosim_hist", "cosim_step")}
+            if launched != {"cosim_hist": 0, "cosim_step": 1 if n else 0}:
+                fail(f"cosim_step launched {launched} {what}")
+            plain = CS.cosim_step_plain(*step_args(t, reach_t), commit_p, n_live, f)
+            for g, p in zip(list(got) + [commit_k], list(plain) + [commit_p]):
+                record_err("cosim_step", g, p, what)
+            record_err("cosim_hist", CS.cosim_hist(t["dst_on"], t["zone"], Z),
+                       CS.cosim_hist_plain(t["dst_on"], t["zone"], Z), what)
+            # the mesh form, twice on one step function, against the plain
+            # step on the padded columns
+            step = packed_cosim_step_fn(mesh, Z)
+            full = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+            b = n_pad // mesh.size
+            commit_m = [full["commit"][j * b : (j + 1) * b].clone().to(d)
+                        for j, d in enumerate(mesh.devices)]
+            commit_p = full["commit"].clone()
+            for rep in range(2):
+                shards = {k: [full[k][j * b : (j + 1) * b].clone().to(d)
+                              for j, d in enumerate(mesh.devices)] for k in COSIM_ROWS[:6]}
+                res = step(*(shards[k] for k in COSIM_ROWS[:3]), reach_t,
+                           *(shards[k] for k in COSIM_ROWS[3:6]), commit_m, (n_live, f))
+                plain = CS.cosim_step_plain(*step_args(full, reach_t), commit_p, n_live, f)
+                for g, p in zip(res, list(plain) + [commit_p]):
+                    record_err("cosim_step", torch.cat([x.to(dev) for x in g]), p,
+                               f"on {mesh}, call {rep + 1}, {what}")
+        # column views one row in: not 16-byte aligned
+        n = COSIM_TAIL_NS[-1]
+        cols, reach = cosim_columns(gen, n + 1, Z, n + 1)
+        n_live, f = n - n // 50, (n - 1) // 3
+        reach_t = torch.from_numpy(reach).to(dev)
+        t = {k: torch.from_numpy(v).to(dev)[1:] for k, v in cols.items()}
+        commit_k, commit_m = (torch.from_numpy(cols["commit"].copy()).to(dev)[1:]
+                              for _ in range(2))
+        commit_p = commit_k.clone()
+        got = CS.cosim_step(*step_args(t, reach_t), commit_k, n_live, f)
+        plain = CS.cosim_step_plain(*step_args(t, reach_t), commit_p, n_live, f)
+        a = CS.cosim_hist(t["dst_on"], t["zone"], Z)
+        mesh_form = CS.cosim_decide(t["prop_on"], t["zone"], reach_t, t["ovr_mask"], t["ovr_c1"],
+                                    t["forged_cnt"], commit_m, a, n_live, f)
+        what = f"on views one row in at n={n}, Z={Z}"
+        for g, p in zip(list(got) + [commit_k], list(plain) + [commit_p]):
+            record_err("cosim_step", g, p, what)
+        for g, p in zip(list(mesh_form) + [commit_m], list(plain) + [commit_p]):
+            record_err("cosim_step", g, p, f"(hist + decision) {what}")
+    log(f"cosim_step tail shapes n={COSIM_TAIL_NS} x Z={COSIM_TAIL_ZS}: one launch (none at "
+        f"n = 0), cosim_hist and {mesh} (called twice) byte-equal to plain; views one row in "
+        f"byte-equal too")
+
+
 def cosim_phase(mesh, record_err, timed, device_timed) -> dict:
     """Phase 6 (see the module docstring) on the card; fails the script
     on any mismatch.  Returns the kernels' times and bounds and each
@@ -981,6 +1077,7 @@ def cosim_phase(mesh, record_err, timed, device_timed) -> dict:
         log(f"cosim_step n={n} Z={Z}: hist and step byte-equal to plain (accepted, nondef, "
             f"dec_fail {counts}; rows without an override definite-0, nondef, definite-1 "
             f"{classes}; commit in place), {mesh} byte-equal to one launch")
+    cosim_tail_check(mesh, record_err)
     # timed at the scale run's shape, on the card's timeline
     n, Z = COSIM_TIME_N, COSIM_TIME_Z
     cols, reach = cosim_columns(gen, n, Z, n)
@@ -993,8 +1090,18 @@ def cosim_phase(mesh, record_err, timed, device_timed) -> dict:
     # the kernels on the card's timeline; the plain versions' dozens of
     # torch calls a step take longer to enqueue than the card to run them,
     # so they are timed by events around calls paced by the host
+    # (i) the one-launch step; (ii) the mesh form's two kernels back to
+    # back on one shard of the whole n; (iii) cosim_hist alone
     out["step_ms"] = device_timed(lambda: CS.cosim_step(*args), COSIM_REPS)
     out["step_plain_ms"] = timed(lambda: CS.cosim_step_plain(*args), COSIM_REPS)[1]
+    shard_scratch = CS.CosimScratch(Z, dev)
+
+    def mesh_pair():
+        a = CS.cosim_hist(*hist_args, scratch=shard_scratch)
+        return CS.cosim_decide(args[0], args[2], args[3], *args[4:8], a, *args[8:])
+
+    mesh_pair()  # warm-up
+    out["mesh_pair_ms"] = device_timed(mesh_pair, COSIM_REPS)
     out["hist_ms"] = device_timed(lambda: CS.cosim_hist(*hist_args), COSIM_REPS)
     out["hist_plain_ms"] = timed(lambda: CS.cosim_hist_plain(*hist_args), COSIM_REPS)[1]
     # the library call that makes the same histogram: one index_add_ (its
@@ -1003,14 +1110,28 @@ def cosim_phase(mesh, record_err, timed, device_timed) -> dict:
     acc = torch.zeros(Z, dtype=torch.int32, device=dev)
     acc.index_add_(0, zone64, dst32)
     out["hist_library_ms"] = device_timed(lambda: acc.index_add_(0, zone64, dst32), COSIM_REPS)
+    # (v) the launch floor: an empty <<<1, 32>>> kernel enqueued the same
+    # way; and the step's cooperative grid empty, then crossing its barrier
+    blocks = CS.step_blocks(n, dev)
+    probe_words = torch.zeros(4, dtype=torch.int32, device=dev)
+    for kind in ("empty", "grid", "barrier"):
+        CS.launch_probe(kind, dev, blocks, probe_words)  # warm-up
+    out["floor_ms"] = device_timed(lambda: CS.launch_probe("empty", dev), COSIM_REPS)
+    out["grid_ms"] = device_timed(lambda: CS.launch_probe("grid", dev, blocks), COSIM_REPS)
+    out["barrier_ms"] = device_timed(
+        lambda: CS.launch_probe("barrier", dev, blocks, probe_words), COSIM_REPS)
+    out["step_blocks"] = blocks
     out["step_bound"] = cosim_bound(n, Z)
     out["hist_bound"] = cosim_bound(n, Z, hist_only=True)
     log(f"cosim_step n={n} Z={Z} on the card's timeline ({COSIM_REPS} enqueued behind a sleep; "
         f"the plain versions paced by the host): "
-        f"step (hist + decision) {out['step_ms']} ms, plain {out['step_plain_ms']} ms, bound "
-        f"{out['step_bound'][0]} ms (bytes); hist alone {out['hist_ms']} ms, plain "
+        f"step (one launch of {blocks} blocks) {out['step_ms']} ms, plain "
+        f"{out['step_plain_ms']} ms, bound {out['step_bound'][0]} ms (bytes); the mesh form's "
+        f"hist + decision {out['mesh_pair_ms']} ms; hist alone {out['hist_ms']} ms, plain "
         f"{out['hist_plain_ms']} ms, index_add_ {out['hist_library_ms']} ms, bound "
-        f"{out['hist_bound'][0]} ms")
+        f"{out['hist_bound'][0]} ms; an empty <<<1, 32>>> kernel {out['floor_ms']} ms, the "
+        f"step's grid empty {out['grid_ms']} ms, crossing the grid barrier "
+        f"{out['barrier_ms']} ms")
     del t, args
 
     # (b) bench_cosim's largest row, then a CPU twin and a mesh twin
@@ -1037,18 +1158,23 @@ def cosim_phase(mesh, record_err, timed, device_timed) -> dict:
     card, card_runs, out["scale"] = scale_run("on the card")
     out["cosim100k"] = dict(cuda_ec.LAUNCHES)
     epochs = 1 + COSIM_WARM
-    if card.mesh_devices == 1 and (out["cosim100k"]["cosim_hist"] != epochs
+    if card.mesh_devices == 1 and (out["cosim100k"]["cosim_hist"] != 0
                                    or out["cosim100k"]["cosim_step"] != epochs):
-        fail(f"the n={COSIM_N} scale run launched {out['cosim100k']}, not one hist and one "
-             f"step an epoch")
+        fail(f"the n={COSIM_N} scale run launched {out['cosim100k']}, not one step an epoch "
+             f"and no hist")
     if not 0 < card_runs[-1].accepted <= COSIM_N - COSIM_DEAD:
         fail(f"the n={COSIM_N} scale run accepted {card_runs[-1].accepted}")
     host, host_runs, _ = scale_run("on the CPU (plain versions)", device="cpu")
     cuda_ec.reset_launches()
     sharded, mesh_runs, _ = scale_run(f"on {mesh}", mesh=mesh)
     out["cosim100k_mesh"] = dict(cuda_ec.LAUNCHES)
-    if out["cosim100k_mesh"]["ring_permute"] < 1 or out["cosim100k_mesh"]["cosim_step"] < 1:
-        fail(f"the mesh scale run launched {out['cosim100k_mesh']}")
+    # a hist and a decision a shard and S − 1 ring rounds an epoch
+    S = sharded.mesh_devices
+    rounds = (S - 1) * len(cuda_ec.ring_plan(mesh.devices))
+    if (out["cosim100k_mesh"]["cosim_hist"], out["cosim100k_mesh"]["cosim_step"],
+            out["cosim100k_mesh"]["ring_permute"]) != (S * epochs, S * epochs, rounds * epochs):
+        fail(f"the mesh scale run launched {out['cosim100k_mesh']}, not {S} hist, {S} step "
+             f"and {rounds} ring launches an epoch")
     for what, runs, sim in (("CPU", host_runs, host), ("mesh", mesh_runs, sharded)):
         if ([(s.accepted, s.coin_flips) for s in runs] != [(s.accepted, s.coin_flips)
                                                             for s in card_runs]
@@ -1211,7 +1337,12 @@ def main() -> int:
             if not torch.equal(f.canon(got), got):
                 fail(f"{name} returned non-canonical limbs {what}")
             plain = f.canon(plain)
-        err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
+        if tuple(got.shape) != tuple(plain.shape):
+            fail(f"{name} gave shape {tuple(got.shape)}, its plain version "
+                 f"{tuple(plain.shape)} {what}")
+        err = 0
+        if got.numel():
+            err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
         max_err[name] = max(max_err[name], err)
         if err != 0:
             fail(f"{name} differs from its plain version {what} (max |Δ| {err})")
@@ -2098,21 +2229,31 @@ def main() -> int:
             dict(
                 # library_ms None: no one PyTorch call computes the step (a
                 # histogram, a reach-row dot and the agreement algebra); ms is
-                # the whole step, cosim_hist's launch included
+                # the whole step, one cooperative launch of step_blocks blocks
                 row("cosim_step", "hbbft_tpu/parallel/mesh.py:473",
                     cosim["cosim100k"]["cosim_step"], cosim["step_ms"], cosim["step_plain_ms"],
                     cosim["step_bound"]),
                 replaces_kind="an XLA program (packed_cosim_step_fn's _body), not a Pallas kernel",
                 shape=[COSIM_TIME_N, COSIM_TIME_Z], scale=cosim["scale"],
+                step_blocks=cosim["step_blocks"],
+                # the mesh form on one shard of the whole n: cosim_hist, then
+                # the decision kernel
+                mesh_pair_ms=cosim["mesh_pair_ms"],
+                # an empty <<<1, 32>>> kernel, and the step's grid empty and
+                # crossing its grid barrier, enqueued the same way
+                floor_ms=cosim["floor_ms"], grid_ms=cosim["grid_ms"],
+                barrier_ms=cosim["barrier_ms"],
             ),
             dict(
-                # library_ms: one index_add_ of the same counts (zones in range)
+                # library_ms: one index_add_ of the same counts (zones in
+                # range); launches: the mesh path's (one card launches none)
                 row("cosim_hist", "hbbft_tpu/parallel/mesh.py:473",
-                    cosim["cosim100k"]["cosim_hist"], cosim["hist_ms"], cosim["hist_plain_ms"],
-                    cosim["hist_bound"], cosim["hist_library_ms"], source="cosim_step"),
+                    cosim["cosim100k_mesh"]["cosim_hist"], cosim["hist_ms"],
+                    cosim["hist_plain_ms"], cosim["hist_bound"], cosim["hist_library_ms"],
+                    source="cosim_step"),
                 replaces_kind="the zone histogram of an XLA program (packed_cosim_step_fn's "
                               "_body), not a Pallas kernel",
-                shape=[COSIM_TIME_N, COSIM_TIME_Z],
+                shape=[COSIM_TIME_N, COSIM_TIME_Z], floor_ms=cosim["floor_ms"],
             ),
         ]
     }

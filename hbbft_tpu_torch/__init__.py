@@ -27,9 +27,10 @@ network of ``harness/network.py``, their share checks flushed in
 batches through the same backend.  The packed co-simulation
 (``harness/cosim.py``: ``PackedHoneyBadgerCosim``,
 ``PackedQueueingCosim``) keeps a whole network's agreement state as
-``[n]`` columns on the card and resolves each epoch with the
-``cosim_hist`` and ``cosim_step`` kernels (``csrc/cosim_step.cu``),
-under the WAN model of ``harness/wan.py``.  The bit-serial G1 ladder
+``[n]`` columns on the card and resolves each epoch with one launch of
+the ``cosim_step`` kernel (``csrc/cosim_step.cu``; on a mesh a
+``cosim_hist`` and a ``cosim_step`` launch a shard), under the WAN model
+of ``harness/wan.py``.  The bit-serial G1 ladder
 (``csrc/scan_g1.cu``) lies on no production path.
 
 Entry points run on the card unless the caller asks for the CPU:

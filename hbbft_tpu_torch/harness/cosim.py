@@ -6,8 +6,9 @@ The port of ``hbbft_tpu/harness/cosim.py``.  ``VectorizedHoneyBadgerSim``
 Python dicts keyed by node id — O(n) to O(n²) host objects an epoch,
 which tops out around n = 1024.  Here the whole network's per-epoch
 protocol state lives in packed ``[n]`` columns (struct-of-arrays), one
-step (``parallel/mesh.py::packed_cosim_step_fn``: the ``cosim_hist`` and
-``cosim_step`` kernels) resolves every agreement instance's decision, and
+step (``parallel/mesh.py::packed_cosim_step_fn``: one ``cosim_step``
+launch on one card; a ``cosim_hist`` and a ``cosim_step`` launch a shard
+on a mesh) resolves every agreement instance's decision, and
 the Python side holds O(1) objects whatever n is.
 
 The move that makes this exact rather than approximate: under the mock
@@ -49,8 +50,10 @@ axis; otherwise the instance axis is sharded over every card
 (``make_mesh``) when more than one is visible and n ≥ 4096, and stays on
 one device below.  Each shard's zone and commit columns live on its
 device for the sim's life (the commit column advanced in place every
-step); each epoch's host columns are pinned tensors the sim owns,
-allocated once and cleared every epoch.  The reference's trace event
+step); each epoch's host columns and its ``[Z, Z]`` zone reachability
+are pinned tensors the sim owns, allocated once, filled every epoch and
+copied to the card together (the ``to_card`` stage), so the step stage
+makes no copy from pageable memory.  The reference's trace event
 and its environment switches (``HBBFT_TPU_COSIM_MESH{,_MIN}``) are not
 ported: the keywords are the one switch.
 """
@@ -191,6 +194,9 @@ class PackedHoneyBadgerCosim:
             "forged_cnt": host(torch.int32),
         }
         self._back = [host(torch.int8) for _ in range(3)]
+        # the epoch's zone reachability, filled each step and copied to
+        # the card with the columns (to_card)
+        self._reach_h = torch.zeros((self._Z, self._Z), dtype=torch.uint8, pin_memory=pin)
         zone_h = np.zeros(self._n_pad, dtype=np.int32)
         if self.wan is not None:
             zone_h[: self.n] = self.wan.zone
@@ -386,6 +392,9 @@ class PackedHoneyBadgerCosim:
             h["prop_on"][_rows(delivered)] = 1
             h["dst_on"][:n] = live
             reach = np.ones((1, 1), dtype=np.uint8)
+        if reach.shape != tuple(self._reach_h.shape):
+            raise ValueError(f"reach must be [{self._Z}, {self._Z}] for this sim, got {reach.shape}")
+        self._reach_h.numpy()[...] = reach
         for pid, subset in late_subset.items():
             h["ovr_mask"][pid] = 1
             h["ovr_c1"][pid] = sum(1 for nid in subset if live[nid])
@@ -397,7 +406,7 @@ class PackedHoneyBadgerCosim:
                     h["forged_cnt"][pid] += 1
         t1 = time.perf_counter()
         cols = {k: self._to_shards(t) for k, t in self._h.items()}
-        reach_t = torch.from_numpy(np.ascontiguousarray(reach, dtype=np.uint8))
+        reach_t = self._reach_h.to(self._devices[0], non_blocking=True)
         self._sync()
         t2 = time.perf_counter()
         # one device's step takes tensors, a mesh's lists of shard blocks

@@ -8,35 +8,50 @@ fuses into one launch an epoch.  Over n packed instance columns and a
 
 - :func:`cosim_hist` — ``a[z] = Σ_j dst_on[j]·[zone_j = z]``, the live,
   on-time receivers of each zone (``csrc/cosim_step.cu``,
-  ``cosim_hist_kernel``);
+  ``cosim_hist_kernel``: a mesh shard's partial);
 - :func:`cosim_decide` — per instance p, the yes votes
   ``c1 = ovr_mask ? ovr_c1 : prop_on·Σ_z reach[zone_p, z]·a[z]``, the no
   votes ``c0 = n_live − c1``, and the closed form of the honest binary
   agreement (lift past f+1, bin past 2f+1): ``accepted = has1``,
   ``nondef = has1 & has0`` (the instance needs a real coin),
   ``dec_fail = accepted & (n_live − forged_cnt ≤ f)``, and
-  ``commit += accepted`` in place (``cosim_step_kernel``);
-- :func:`cosim_step` — both, on one device.
+  ``commit += accepted`` in place (``cosim_step_kernel<false>``: a mesh
+  shard's decision, given the ring-summed histogram);
+- :func:`cosim_step` — both on one device, in ONE launch on the card
+  (``cosim_step_kernel<true>``, a cooperative grid: each block's
+  histogram, a grid barrier, then the decision from registers).
 
 Columns: ``prop_on``, ``dst_on``, ``ovr_mask`` int8; ``zone``, ``ovr_c1``,
 ``forged_cnt``, ``commit`` int32; ``reach`` uint8 ``[Z, Z]``; every row
 column of one length.  A zone must lie in ``[0, Z)``: outside it, a row
 adds nothing to the histogram and its reach row is clamped (the
 reference's scatter drops and its gather clamps).  Arithmetic is int32
-and wraps as XLA's does.
+and wraps as XLA's does.  On the card the columns may be any contiguous
+views: 16-byte aligned ones are read and written with vector accesses,
+others with scalar ones, with the same results.
+
+The kernels keep state between launches in a :class:`CosimScratch`
+(``4 + 3·Z`` int32 words on the card, zeroed once when made): the grid
+barrier's word, ``cosim_hist``'s ticket and the histogram accumulators,
+each left as the launch found it, so no epoch pays a memset.  A scratch
+serves one stream at a time; the wrappers take one
+(``parallel/mesh.packed_cosim_step_fn`` owns one a shard) or use the
+module's own for the device, stream and Z.
 
 Each wrapper, on CUDA tensors, launches its kernel on the current stream
-(or raises; never a fallback) and counts it in
-``cuda_ec.LAUNCHES["cosim_hist"]`` / ``["cosim_step"]``; on CPU tensors
-it runs the plain version.  The plain versions are for the CPU tests and
-for ``chip_smoke.py``'s comparison on the card.
+(or raises — a refused cooperative launch too; never a fallback) and
+counts it in ``cuda_ec.LAUNCHES["cosim_hist"]`` / ``["cosim_step"]``
+(the decision of a mesh shard and the one-launch step both count as
+``cosim_step``); on CPU tensors it runs the plain version.  The plain
+versions are for the CPU tests and for ``chip_smoke.py``'s comparison on
+the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -52,6 +67,10 @@ _ROW_DTYPES = {
     "forged_cnt": torch.int32,
     "commit": torch.int32,
 }
+
+# the scratch's header words before its three [Z] accumulators
+# (csrc/cosim_step.cu: W_HEAD)
+_HEAD_WORDS = 4
 
 
 def _check(device: torch.device, n: int, Z: int, **cols: torch.Tensor) -> None:
@@ -123,15 +142,56 @@ def cosim_decide_plain(
 # ---------------------------------------------------------------------------
 
 
+class CosimScratch:
+    """The kernels' state between launches on one device for one Z:
+    ``words``, ``4 + 3·Z`` int32 zeroed once here (on the current stream)
+    and left zeroed by every launch that completes.  Use it from one
+    stream at a time."""
+
+    __slots__ = ("Z", "words")
+
+    def __init__(self, Z: int, device: torch.device):
+        self.Z = int(Z)
+        self.words = torch.zeros(_HEAD_WORDS + 3 * self.Z, dtype=torch.int32, device=device)
+
+
+_SCRATCH: Dict[Tuple[torch.device, int, int], CosimScratch] = {}
+
+
+def _scratch(scratch: Optional[CosimScratch], device: torch.device, Z: int) -> CosimScratch:
+    if scratch is not None:
+        if scratch.Z != Z or scratch.words.device != device:
+            raise ValueError(
+                f"a scratch for Z = {scratch.Z} on {scratch.words.device}, the step's Z = {Z} "
+                f"on {device}"
+            )
+        return scratch
+    key = (device, torch.cuda.current_stream(device).cuda_stream, Z)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = CosimScratch(Z, device)
+    return _SCRATCH[key]
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The kernels' library, its signatures set once."""
-    lib = kernels.load("cosim_step")
+    return bind(kernels.load("cosim_step"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures on a build of ``csrc/cosim_step.cu``
+    (``scripts/torch_cosim_sweep.py`` binds patched builds with it)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cosim_hist_launch.argtypes = [p, p, i, i, p, p]
-    lib.cosim_hist_launch.restype = i
-    lib.cosim_step_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p, p, p, p]
+    lib.cosim_step_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p, p, p, p, p]
     lib.cosim_step_launch.restype = i
+    lib.cosim_hist_launch.argtypes = [p, p, i, i, p, p, p]
+    lib.cosim_hist_launch.restype = i
+    lib.cosim_decide_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p, p, p, p]
+    lib.cosim_decide_launch.restype = i
+    lib.cosim_step_blocks.argtypes = [i]
+    lib.cosim_step_blocks.restype = i
+    lib.cosim_probe_launch.argtypes = [i, p, i, p]
+    lib.cosim_probe_launch.restype = i
     lib.cosim_error_string.argtypes = [i]
     lib.cosim_error_string.restype = ctypes.c_char_p
     return lib
@@ -150,23 +210,37 @@ def _on_card(device: torch.device, name: str) -> bool:
     return True
 
 
-def cosim_hist(dst_on: torch.Tensor, zone: torch.Tensor, Z: int) -> torch.Tensor:
+def _launch(fn, device: torch.device, *args) -> int:
+    """Call a launcher with ``device`` current and its current stream
+    last (the device context is entered only when another is current)."""
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream().cuda_stream)
+    return fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def _masks(n: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three int8 masks as rows of one allocation, each row starting
+    16-byte aligned so that the kernel stores them a chunk at a time."""
+    m = torch.empty((3, -(-n // 16) * 16), dtype=torch.int8, device=device)
+    return m[0, :n], m[1, :n], m[2, :n]
+
+
+def cosim_hist(dst_on: torch.Tensor, zone: torch.Tensor, Z: int,
+               scratch: Optional[CosimScratch] = None) -> torch.Tensor:
     """The zone histogram ``[Z]`` int32 of ``dst_on`` (the wrapper of the
-    ``cosim_hist`` kernel)."""
+    ``cosim_hist`` kernel: one launch, also at n = 0)."""
     n = zone.shape[0]
     _check(zone.device, n, Z, dst_on=dst_on, zone=zone)
     if not _on_card(zone.device, "cosim_hist"):
         return cosim_hist_plain(dst_on, zone, Z)
     a = torch.empty(Z, dtype=torch.int32, device=zone.device)
+    scratch = _scratch(scratch, zone.device, Z)
     lib = _lib()
-    with torch.cuda.device(zone.device):
-        rc = lib.cosim_hist_launch(
-            dst_on.data_ptr(), zone.data_ptr(), n, Z, a.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _launch(lib.cosim_hist_launch, zone.device, dst_on.data_ptr(), zone.data_ptr(), n, Z,
+                 a.data_ptr(), scratch.words.data_ptr())
     _raise(lib, "cosim_hist", rc)
-    if n:
-        LAUNCHES["cosim_hist"] += 1
+    LAUNCHES["cosim_hist"] += 1
     return a
 
 
@@ -182,28 +256,29 @@ def cosim_decide(
     n_live: int,
     f: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Every instance's decision given the histogram ``a`` (the wrapper
-    of the ``cosim_step`` kernel): ``(accepted, nondef, dec_fail)`` int8
-    0/1, ``commit`` advanced in place."""
+    """Every instance's decision given the histogram ``a`` (a mesh
+    shard's: the wrapper of ``cosim_step_kernel<false>``, counted as
+    ``cosim_step``; no launch at n = 0): ``(accepted, nondef, dec_fail)``
+    int8 0/1, ``commit`` advanced in place."""
     n, Z = zone.shape[0], a.shape[0]
     _check(zone.device, n, Z, prop_on=prop_on, zone=zone, reach=reach, ovr_mask=ovr_mask,
            ovr_c1=ovr_c1, forged_cnt=forged_cnt, commit=commit, a=a)
     if not _on_card(zone.device, "cosim_step"):
         return cosim_decide_plain(prop_on, zone, reach, ovr_mask, ovr_c1, forged_cnt, commit,
                                   a, n_live, f)
-    outs = [torch.empty(n, dtype=torch.int8, device=zone.device) for _ in range(3)]
+    outs = _masks(n, zone.device)
+    if n == 0:
+        return outs
     lib = _lib()
-    with torch.cuda.device(zone.device):
-        rc = lib.cosim_step_launch(
-            prop_on.data_ptr(), zone.data_ptr(), reach.data_ptr(), ovr_mask.data_ptr(),
-            ovr_c1.data_ptr(), forged_cnt.data_ptr(), commit.data_ptr(), a.data_ptr(),
-            n, Z, int(n_live), int(f), *(o.data_ptr() for o in outs),
-            torch.cuda.current_stream().cuda_stream,
-        )
+    rc = _launch(
+        lib.cosim_decide_launch, zone.device,
+        prop_on.data_ptr(), zone.data_ptr(), reach.data_ptr(), ovr_mask.data_ptr(),
+        ovr_c1.data_ptr(), forged_cnt.data_ptr(), commit.data_ptr(), a.data_ptr(),
+        n, Z, int(n_live), int(f), *(o.data_ptr() for o in outs),
+    )
     _raise(lib, "cosim_step", rc)
-    if n:
-        LAUNCHES["cosim_step"] += 1
-    return outs[0], outs[1], outs[2]
+    LAUNCHES["cosim_step"] += 1
+    return outs
 
 
 def cosim_step(
@@ -217,12 +292,32 @@ def cosim_step(
     commit: torch.Tensor,
     n_live: int,
     f: int,
+    scratch: Optional[CosimScratch] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One device's whole step: :func:`cosim_hist`, then
-    :func:`cosim_decide` (two launches on the card)."""
-    a = cosim_hist(dst_on, zone, reach.shape[0])
-    return cosim_decide(prop_on, zone, reach, ovr_mask, ovr_c1, forged_cnt, commit, a,
-                        n_live, f)
+    """One device's whole step: the histogram and every decision, one
+    cooperative launch of ``cosim_step_kernel<true>`` on the card (no
+    launch at n = 0); ``(accepted, nondef, dec_fail)`` int8 0/1,
+    ``commit`` advanced in place."""
+    n, Z = zone.shape[0], reach.shape[0]
+    _check(zone.device, n, Z, prop_on=prop_on, dst_on=dst_on, zone=zone, reach=reach,
+           ovr_mask=ovr_mask, ovr_c1=ovr_c1, forged_cnt=forged_cnt, commit=commit)
+    if not _on_card(zone.device, "cosim_step"):
+        return cosim_step_plain(prop_on, dst_on, zone, reach, ovr_mask, ovr_c1, forged_cnt,
+                                commit, n_live, f)
+    outs = _masks(n, zone.device)
+    if n == 0:
+        return outs
+    scratch = _scratch(scratch, zone.device, Z)
+    lib = _lib()
+    rc = _launch(
+        lib.cosim_step_launch, zone.device,
+        prop_on.data_ptr(), dst_on.data_ptr(), zone.data_ptr(), reach.data_ptr(),
+        ovr_mask.data_ptr(), ovr_c1.data_ptr(), forged_cnt.data_ptr(), commit.data_ptr(),
+        n, Z, int(n_live), int(f), *(o.data_ptr() for o in outs), scratch.words.data_ptr(),
+    )
+    _raise(lib, "cosim_step", rc)
+    LAUNCHES["cosim_step"] += 1
+    return outs
 
 
 def cosim_step_plain(
@@ -241,3 +336,35 @@ def cosim_step_plain(
     a = cosim_hist_plain(dst_on, zone, reach.shape[0])
     return cosim_decide_plain(prop_on, zone, reach, ovr_mask, ovr_c1, forged_cnt, commit, a,
                               n_live, f)
+
+
+# ---------------------------------------------------------------------------
+# Launch-cost probes (chip_smoke.py's floor beside the step)
+# ---------------------------------------------------------------------------
+
+PROBES = {"empty": 0, "grid": 1, "barrier": 2}
+
+
+def step_blocks(n: int, device: torch.device) -> int:
+    """The blocks of :func:`cosim_step`'s cooperative grid at n rows on
+    ``device`` (a card)."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        blocks = lib.cosim_step_blocks(n)
+    _raise(lib, "cosim_step_blocks", -blocks if blocks < 0 else 0)
+    return blocks
+
+
+def launch_probe(kind: str, device: torch.device, blocks: int = 1,
+                 scratch: Optional[torch.Tensor] = None) -> None:
+    """Enqueue one launch-cost probe on ``device``'s current stream:
+    ``"empty"`` an empty ``<<<1, 32>>>`` kernel; ``"grid"`` a cooperative
+    grid of ``blocks`` × 256 threads that does nothing; ``"barrier"`` the
+    same grid crossing the step's grid barrier once, on ``scratch`` (its
+    own zeroed int32 words, at least 4).  Counted nowhere."""
+    lib = _lib()
+    ptr = scratch.data_ptr() if scratch is not None else 0
+    if kind == "barrier" and (scratch is None or scratch.numel() < _HEAD_WORDS):
+        raise ValueError("the barrier probe needs a scratch of its own")
+    _raise(lib, f"the {kind} probe", _launch(lib.cosim_probe_launch, device, PROBES[kind], ptr,
+                                              blocks))

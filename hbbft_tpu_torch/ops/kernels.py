@@ -7,7 +7,8 @@ a plain C entry point.  The scalar multiplications (``win_g1.cu``,
 field code; ``fr_matmul.cu`` (the DKG's Fr products, ``ops/fr.py``)
 takes its arithmetic from ``csrc/fr_words.cuh``; ``cosim_step.cu`` (the
 packed co-simulation's step, ``ops/cosim_step.py``) holds the
-``cosim_hist`` and ``cosim_step`` kernels.  A kernel is compiled
+``cosim_step`` kernel (the whole step in one cooperative launch, or a
+mesh shard's decision) and the ``cosim_hist`` kernel.  A kernel is compiled
 on first use by ``nvcc`` for Hopper (``-gencode
 arch=compute_90a,code=sm_90a``) into a shared library under
 ``build/hbbft_tpu_torch/`` at the repo root, and loaded with ``ctypes``.  The library's file name carries a hash of the source,

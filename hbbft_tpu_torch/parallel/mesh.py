@@ -28,7 +28,7 @@ its XLA scan engine have no counterpart: PyTorch runs eagerly.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -220,17 +220,33 @@ def packed_cosim_step_fn(mesh: Optional[Mesh], n_zones: int):
     with ``mesh`` None (or of one shard) each row column is one tensor,
     on a mesh a list of shard j's block on ``mesh.devices[j]`` (equal
     blocks, the instance axis padded by :func:`cosim_pad`); ``reach`` is
-    ``[n_zones, n_zones]`` uint8 on any device (copied to each shard's);
-    ``params`` is ``(n_live, f)``.  Returns ``(accepted, nondef,
-    dec_fail, commit)`` in the same form: int8 0/1 masks, and ``commit``
-    advanced in place — the same tensors, the counterpart of the
-    reference's donated buffer.  On the card each shard launches
-    ``cosim_hist`` and ``cosim_step`` on its stream, and a mesh of S
-    shards adds S − 1 ring rounds; the results are ready on the devices'
-    current streams.  CPU tensors run the plain versions."""
+    ``[n_zones, n_zones]`` uint8 on any device (copied to each shard's
+    where it lies elsewhere); ``params`` is ``(n_live, f)``.  Returns
+    ``(accepted, nondef, dec_fail, commit)`` in the same form: int8 0/1
+    masks, and ``commit`` advanced in place — the same tensors, the
+    counterpart of the reference's donated buffer.
+
+    On the card one device's step is ONE cooperative launch of the
+    ``cosim_step`` kernel (histogram, grid barrier, decision); on a mesh
+    of S shards each shard launches ``cosim_hist`` on its stream, the
+    ``[Z]`` partials meet in S − 1 ring rounds, and each shard launches
+    the decision (counted as ``cosim_step``): two launches a shard.  The
+    step owns the kernels' scratch (``CosimScratch``), one a shard, made
+    on first use and kept zeroed by the kernels, so no epoch pays a
+    memset; call a step from one stream a device at a time.  The results
+    are ready on the devices' current streams.  CPU tensors run the plain
+    versions."""
     Z = int(n_zones)
     if mesh is not None and mesh.size == 1:
         mesh = None
+    scratch: Dict[Tuple[int, torch.device], CS.CosimScratch] = {}
+
+    def own(j: int, device: torch.device) -> Optional[CS.CosimScratch]:
+        if device.type != "cuda":
+            return None
+        if (j, device) not in scratch:
+            scratch[(j, device)] = CS.CosimScratch(Z, device)
+        return scratch[(j, device)]
 
     def run(
         prop_on: Cols, dst_on: Cols, zone: Cols, reach: torch.Tensor, ovr_mask: Cols,
@@ -240,9 +256,10 @@ def packed_cosim_step_fn(mesh: Optional[Mesh], n_zones: int):
             raise ValueError(f"reach must be [{Z}, {Z}] for this step, got {tuple(reach.shape)}")
         n_live, f = (int(x) for x in params)
         if mesh is None:
+            dev = zone.device
             acc, nondef, fail = CS.cosim_step(
-                prop_on, dst_on, zone, reach.to(zone.device), ovr_mask, ovr_c1, forged_cnt,
-                commit, n_live, f,
+                prop_on, dst_on, zone, reach.to(dev), ovr_mask, ovr_c1, forged_cnt, commit,
+                n_live, f, scratch=own(0, dev),
             )
             return acc, nondef, fail, commit
         if not all(len(c) == mesh.size for c in (prop_on, dst_on, zone, ovr_mask, ovr_c1,
@@ -253,7 +270,7 @@ def packed_cosim_step_fn(mesh: Optional[Mesh], n_zones: int):
         for j, d in enumerate(mesh.devices):
             with mesh.on(j):
                 reaches.append(reach.to(d))
-                partial.append(CS.cosim_hist(dst_on[j], zone[j], Z))
+                partial.append(CS.cosim_hist(dst_on[j], zone[j], Z, scratch=own(j, zone[j].device)))
         a = _ring_reduce(partial, torch.add, mesh)
         outs = []
         for j in range(mesh.size):

@@ -14,8 +14,10 @@ building the ``cosim_step`` kernels:
    it (``cosim_epochs_per_s``: the warm median, init, cold and warm
    walls, accepted, coin flips, peak RSS, bytes a validator, shards),
    plus each warm epoch's wall split into the WAN view, the host mask
-   building, the copies to the card, the step (the ``cosim_hist`` and
-   ``cosim_step`` launches) and the copies back, each ended by a
+   building, the copies to the card (the reach matrix with them), the
+   step (one ``cosim_step`` launch on one card; a ``cosim_hist`` and a
+   ``cosim_step`` launch a shard on a mesh) and the copies back, each
+   ended by a
    synchronize (medians, and ``other``: what the epoch spent outside
    them), and the launches;
 2. the equivalence leg: ``VectorizedQueueingSim(1024, Random(0xC051),

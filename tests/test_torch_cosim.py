@@ -258,6 +258,29 @@ def test_queueing_wan_twin():
     assert len({r.random() for r in rngs}) == 1
 
 
+def test_reach_is_copied_from_a_buffer_the_sim_owns():
+    """The epoch's ``[Z, Z]`` reach goes to the step from one buffer the
+    sim owns (pinned beside a card; copied in the ``to_card`` stage),
+    refilled every epoch: the WAN partition epoch's reach, which cuts
+    zones {0, 1} from zone 2, differs from the epoch before's and still
+    gives the reference's epoch."""
+    n = 13
+    ref = RC.PackedHoneyBadgerCosim(n, random.Random(5), wan=_wan_model(RW))
+    port = PC.PackedHoneyBadgerCosim(n, random.Random(5), wan=_wan_model(PW), device="cpu")
+    buf = port._reach_h
+    assert tuple(buf.shape) == (3, 3) and buf.dtype == torch.uint8
+    seen = []
+    for e in range(3):
+        a, b = ref.run_epoch(_contribs(n, e)), port.run_epoch(_contribs(n, e))
+        assert _row(b, pdumps) == _row(a, rdumps), e
+        assert port._reach_h is buf
+        assert np.array_equal(buf.numpy(), port.wan.epoch_view(e).reach)
+        seen.append(buf.clone())
+    assert not torch.equal(seen[0], seen[1])  # epoch 1 is the partition window
+    assert seen[1][0, 2] == seen[1][1, 2] == seen[1][2, 0] == 0
+    assert np.array_equal(port.commit_counts(), ref.commit_counts())
+
+
 def _stats(s):
     return (s.epoch, s.n, s.accepted, s.coin_flips, s.bytes_per_validator, s.mesh_devices)
 
@@ -322,9 +345,14 @@ def _random_columns(rng, n, n_pad, Z):
 ORDER = ("prop_on", "dst_on", "zone", "ovr_mask", "ovr_c1", "forged_cnt", "commit")
 
 
-@pytest.mark.parametrize("Z", [1, 3, 5])
-@pytest.mark.parametrize("n", [13, 64, 301])
-def test_step_matches_reference_body(Z, n):
+@pytest.mark.parametrize(
+    "n,Z",
+    [(n, Z) for n in (13, 64, 301) for Z in (1, 3, 5)]
+    # the kernels' tail shapes: no row, one, a chunk of 16 and one more, a
+    # partial block; Z = 257 takes a second 256-zone window
+    + [(n, 257) for n in (0, 1, 17, 4097)],
+)
+def test_step_matches_reference_body(n, Z):
     """The port's step (``packed_cosim_step_fn``, one CPU device and a
     4-shard CPU mesh) against the reference's ``_body`` under
     ``jax.jit``, on random columns padded to four shards: every output
@@ -419,3 +447,22 @@ def test_step_wrappers_check_their_columns_and_count_no_launch_on_the_cpu():
     zone = torch.tensor([-1, 0, 5, 2], dtype=torch.int32)
     ones = torch.ones(4, dtype=torch.int8)
     assert CS.cosim_hist(ones, zone, 3).tolist() == [1, 0, 1]
+
+
+def test_cosim_sweep_patches_apply():
+    """scripts/torch_cosim_sweep.py's variants patch copies of
+    csrc/cosim_step.cu by text: every anchor must be in the source once,
+    and the row counts it builds are ones the source takes."""
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "torch_cosim_sweep", root / "scripts" / "torch_cosim_sweep.py")
+    sweep = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sweep)
+    src = (root / "hbbft_tpu_torch" / "csrc" / "cosim_step.cu").read_text()
+    assert "ROWS == 4 || ROWS == 8 || ROWS == 16" in src
+    for label, patches in sweep.VARIANTS.items():
+        for old, _ in patches:
+            assert src.count(old) == 1, (label, old)

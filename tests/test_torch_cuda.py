@@ -23,8 +23,11 @@ and two ``fr_planes`` launches a call; ``fr_planes`` must equal its plain
 version byte for byte; and the clean elided DKG must take it by default
 on the card and deal the CPU run's keys.  ``cosim_hist`` and
 ``cosim_step`` must equal their plain versions byte for byte at Z = 1, 5
-and 300 (above the kernels' shared-memory zone counters), one launch
-each, with the 4-shard mesh step equal to the one launch, and the packed
+and 300 (above the kernels' shared-memory zone counters), the whole step
+one launch of ``cosim_step`` and none of ``cosim_hist``, with the 4-shard
+mesh step equal to the one launch; so must the tail shapes n = 0, 1, 15,
+16, 17, 4,097 at Z = 1, 5, 257 (the mesh step called twice, reusing its
+scratch) and column views that are not 16-byte aligned; and the packed
 co-sim on the card must equal its CPU run.
 """
 
@@ -377,10 +380,11 @@ def test_dkg_device_engine_on_the_card_matches_cpu(dev):
 @pytest.mark.parametrize("Z", [1, 5, 300])
 def test_cosim_step_kernels_match_plain(dev, Z):
     """cosim_hist and cosim_step on the card: byte for byte their plain
-    versions (the commit column advanced in place), one launch each, at
-    a Z above the kernels' 256 shared-memory zone counters too, with rows
-    without an override in every decision class; and the 4-shard mesh
-    step equal to the one launch."""
+    versions (the commit column advanced in place), the whole step one
+    cosim_step launch and no cosim_hist, at a Z above the kernels' 256
+    shared-memory zone counters too, with rows without an override in
+    every decision class; and the 4-shard mesh step equal to the one
+    launch."""
     import chip_smoke as cs
     from hbbft_tpu_torch.ops import cosim_step as CS
     from hbbft_tpu_torch.ops import cuda_ec
@@ -394,12 +398,15 @@ def test_cosim_step_kernels_match_plain(dev, Z):
     ck, cp = t["commit"].clone(), t["commit"].clone()
     before = dict(cuda_ec.LAUNCHES)
     got = CS.cosim_step(*args, ck, n - 50, (n - 1) // 3)
-    assert cuda_ec.LAUNCHES["cosim_hist"] == before["cosim_hist"] + 1
+    assert cuda_ec.LAUNCHES["cosim_hist"] == before["cosim_hist"]
     assert cuda_ec.LAUNCHES["cosim_step"] == before["cosim_step"] + 1
     want = CS.cosim_step_plain(*args, cp, n - 50, (n - 1) // 3)
     torch.cuda.synchronize()
     for g, w in zip(list(got) + [ck], list(want) + [cp]):
         assert torch.equal(g, w)
+    a = CS.cosim_hist(t["dst_on"], t["zone"], Z)
+    assert cuda_ec.LAUNCHES["cosim_hist"] == before["cosim_hist"] + 1
+    assert torch.equal(a, CS.cosim_hist_plain(t["dst_on"], t["zone"], Z))
     classes = cs.cosim_classes(*(x.cpu().numpy() for x in got[:2]), cols["ovr_mask"], n)
     assert min(classes[: 2 if Z == 1 else 3]) >= 1, classes  # definite-0, nondef, definite-1
     mesh = make_mesh(4)
@@ -418,9 +425,9 @@ def test_cosim_step_kernels_match_plain(dev, Z):
 
 
 def test_packed_cosim_on_the_card_matches_cpu(dev):
-    """The packed co-sim on the card (its columns, the kernels) and on the
+    """The packed co-sim on the card (its columns, the kernel) and on the
     CPU (the plain versions) under one WAN model: equal epochs and
-    commit counters, one cosim_hist and one cosim_step launch a step."""
+    commit counters, one cosim_step launch a step and no cosim_hist."""
     from hbbft_tpu_torch.harness import wan as W
     from hbbft_tpu_torch.harness.cosim import PackedHoneyBadgerCosim
     from hbbft_tpu_torch.ops import cuda_ec
@@ -434,10 +441,92 @@ def test_packed_cosim_on_the_card_matches_cpu(dev):
         dead = set(range(4900, 5000)) if e else None
         a, b = card.run_epoch_packed(dead=dead), cpu.run_epoch_packed(dead=dead)
         assert (a.accepted, a.coin_flips) == (b.accepted, b.coin_flips)
-    assert cuda_ec.LAUNCHES["cosim_hist"] == cuda_ec.LAUNCHES["cosim_step"] == 3
+    assert (cuda_ec.LAUNCHES["cosim_hist"], cuda_ec.LAUNCHES["cosim_step"]) == (0, 3)
     assert np.array_equal(card.commit_counts(), cpu.commit_counts())
     contribs = {i: [b"c%d" % i] for i in range(5000)}
     a = card.run_epoch(contribs, late_subset={7: set(range(100))})
     b = cpu.run_epoch(contribs, late_subset={7: set(range(100))})
     assert (a.batch, a.accepted, a.coin_flips, a.agreement_epochs) == (
         b.batch, b.accepted, b.coin_flips, b.agreement_epochs)
+
+
+COSIM_ORDER = ("prop_on", "dst_on", "zone", "ovr_mask", "ovr_c1", "forged_cnt", "commit")
+
+
+def _cosim_args(t, reach_t):
+    return [t[k] for k in COSIM_ORDER[:3]] + [reach_t] + [t[k] for k in COSIM_ORDER[3:6]]
+
+
+@pytest.mark.parametrize("Z", [1, 5, 257])
+@pytest.mark.parametrize("n", [0, 1, 15, 16, 17, 4097])
+def test_cosim_step_tail_shapes_match_plain(dev, n, Z):
+    """At no row, one row, 15, 16 and 17 rows (a partial 4-row chunk,
+    whole chunks, one row past them) and a partial last block, and
+    Z = 257 (a second 256-zone window): the
+    one-launch step (one launch, none at n = 0) and cosim_hist byte for
+    byte their plain versions; the 4-shard mesh step, called twice on one
+    step function (its scratch and ticket reused), the plain step on the
+    padded columns."""
+    import chip_smoke as cs
+    from hbbft_tpu_torch.ops import cosim_step as CS
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.parallel.mesh import cosim_pad, make_mesh, packed_cosim_step_fn
+
+    mesh = make_mesh(4)
+    n_pad = cosim_pad(n, 4)
+    cols, reach = cs.cosim_columns(np.random.default_rng(n * 1000 + Z), n, Z, n_pad)
+    n_live, f = n - n // 50, (n - 1) // 3
+    reach_t = torch.from_numpy(reach).to(dev)
+    t = {k: torch.from_numpy(v[:n].copy()).to(dev) for k, v in cols.items()}
+    ck, cp = t["commit"].clone(), t["commit"].clone()
+    before = dict(cuda_ec.LAUNCHES)
+    got = CS.cosim_step(*_cosim_args(t, reach_t), ck, n_live, f)
+    assert cuda_ec.LAUNCHES["cosim_step"] == before["cosim_step"] + (1 if n else 0)
+    assert cuda_ec.LAUNCHES["cosim_hist"] == before["cosim_hist"]
+    want = CS.cosim_step_plain(*_cosim_args(t, reach_t), cp, n_live, f)
+    torch.cuda.synchronize()
+    for g, w in zip(list(got) + [ck], list(want) + [cp]):
+        assert torch.equal(g, w)
+    assert torch.equal(CS.cosim_hist(t["dst_on"], t["zone"], Z),
+                       CS.cosim_hist_plain(t["dst_on"], t["zone"], Z))
+    full = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+    b = n_pad // 4
+    commit_m = [full["commit"][j * b : (j + 1) * b].clone() for j in range(4)]
+    commit_p = full["commit"].clone()
+    step = packed_cosim_step_fn(mesh, Z)
+    for _ in range(2):
+        shards = {k: [full[k][j * b : (j + 1) * b].clone() for j in range(4)]
+                  for k in COSIM_ORDER[:6]}
+        res = step(*(shards[k] for k in COSIM_ORDER[:3]), reach_t,
+                   *(shards[k] for k in COSIM_ORDER[3:6]), commit_m, (n_live, f))
+        want = CS.cosim_step_plain(*_cosim_args(full, reach_t), commit_p, n_live, f)
+        torch.cuda.synchronize()
+        for g, w in zip(res, list(want) + [commit_p]):
+            assert torch.equal(torch.cat([x.to(dev) for x in g]), w)
+
+
+@pytest.mark.parametrize("Z", [5, 257])
+def test_cosim_step_on_misaligned_views_matches_plain(dev, Z):
+    """Column views one row in (int8 ones one byte, int32 ones four bytes
+    past a 16-byte boundary): the one-launch step and the mesh form's two
+    kernels read and write them with scalar accesses and are right."""
+    import chip_smoke as cs
+    from hbbft_tpu_torch.ops import cosim_step as CS
+
+    n = 4097
+    cols, reach = cs.cosim_columns(np.random.default_rng(Z), n + 1, Z, n + 1)
+    n_live, f = n - n // 50, (n - 1) // 3
+    reach_t = torch.from_numpy(reach).to(dev)
+    t = {k: torch.from_numpy(v).to(dev)[1:] for k, v in cols.items()}
+    assert t["zone"].data_ptr() % 16 and t["prop_on"].data_ptr() % 16
+    ck, cm = (torch.from_numpy(cols["commit"].copy()).to(dev)[1:] for _ in range(2))
+    cp = ck.clone()
+    got = CS.cosim_step(*_cosim_args(t, reach_t), ck, n_live, f)
+    a = CS.cosim_hist(t["dst_on"], t["zone"], Z)
+    mesh_form = CS.cosim_decide(t["prop_on"], t["zone"], reach_t, t["ovr_mask"], t["ovr_c1"],
+                                t["forged_cnt"], cm, a, n_live, f)
+    want = CS.cosim_step_plain(*_cosim_args(t, reach_t), cp, n_live, f)
+    torch.cuda.synchronize()
+    assert torch.equal(a, CS.cosim_hist_plain(t["dst_on"], t["zone"], Z))
+    for g, m, w in zip(list(got) + [ck], list(mesh_form) + [cm], list(want) + [cp]):
+        assert torch.equal(g, w) and torch.equal(m, w)
