@@ -160,7 +160,19 @@ In order, and with no phase's failure caught:
    byte-equal at every node and across the two runs, every node must
    hold the same new key set, every key share must sign under it and
    t + 1 of them combine and verify; ``win_g1`` launched at least once a
-   non-empty flush, no fallback.
+   non-empty flush, no fallback.  (e) The virtual-time simulator
+   (``harness/simulation.simulate_queueing_honey_badger``) at the same
+   defaults with 100 ms lag, 2,000 kbit/s and 100 % cpu: (i) mock crypto
+   on the real clock through ``examples/torch_simulation.main`` — the
+   reference's epoch table and epochs/s, every transaction committed at
+   every live node; (ii) real BLS batched on a forced backend and (iii)
+   real BLS unbatched on ``CudaBackend()``, both with 200 transactions
+   (``SIM_REAL_TXS``, cut from 1,000 for the time limit) and under a step clock
+   patched into the simulator's module (``StepClock``), so that their
+   rows, table, message counts and every node's batches must be
+   byte-equal; (ii) must launch ``win_g1`` at least once a non-empty
+   flush with no fallback.  Their host walls (on the real clock),
+   flushes, shares shipped and launches are printed.
 6. **The packed co-simulation** — (a) ``cosim_step`` (the co-sim's
    whole step on one card, one cooperative launch, ``ops/cosim_step.py``)
    and ``cosim_hist`` (a mesh shard's zone histogram) against their plain
@@ -206,13 +218,28 @@ In order, and with no phase's failure caught:
    100)`` on the n = 64 real-BLS epoch (``Random(0x64)``,
    ``verify_honest=True``) on ``CudaBackend()``: it must launch
    ``win_g1``, its network terms must equal a ``CpuBackend()`` twin's,
-   and ``total_s == network_s + cpu_s``; the account is printed.
+   and ``total_s == network_s + cpu_s``; the account is printed.  (e)
+   The n = 64 real-BLS epoch of 4b(a) (``Random(0x64)``,
+   ``verify_honest=True``) under a ``DivergentSchedule``
+   (``div_schedule``: the last f = 21 nodes equivocate with their Aux,
+   class A = nodes 0..21 decides instance 32, whose broadcast reached
+   only nodes 0..3 before the agreement, at agreement epoch 0 and class
+   B = nodes 22..42 at epoch 1): three epochs on ``CudaBackend()`` — each
+   batch equal to the contributions, no fault, ``class_epochs``
+   {32: (0, 1)}, 64 × 43 = 2,752 shares verified (the equivocators are
+   silent in the decryption, so the backend instance's product band is
+   lowered to that count) in exactly one ``win_g1`` launch an epoch —
+   and a ``CpuBackend()`` twin with the same batch bytes, accepted set,
+   fault log, coin flips, share count, agreement and class epochs.
 7. **Report** — the ``kernels`` JSON line (launches counted per path:
    each path's counts are set to 0 just before it and read just after —
    the flush, the mesh flush, the DKG, the n = 64 epochs on the card
    (``epoch64``), on the mesh (``epoch64_mesh``) and the N = 1024
-   epochs (``epoch1024``), and phase 5's four forced runs (``seq_qhb``,
-   ``seq_hb16``, ``seq_forged``, ``seq_churn``) each on its own; ``launches`` is the N = 1024
+   epochs (``epoch1024``), phase 5's four forced runs (``seq_qhb``,
+   ``seq_hb16``, ``seq_forged``, ``seq_churn``) and the simulator's
+   forced run (``seq_sim``, with its flushes and shares in the row's
+   ``seq_sim``) each on its own, and the divergent epochs
+   (``epoch64_div``); ``launches`` is the N = 1024
    epochs' for ``win_g1``, the mesh epochs' for ``ring_permute``, the
    DKG's for ``win_g2``, the entry point's for ``scan_g1`` and the
    churn's (``churn1024``) for ``fr_matmul`` and ``fr_planes``, and
@@ -300,6 +327,20 @@ SEQ_HB_DEAD = 5
 SEQ_HB_SEED = 0x16
 SEQ_FORGE_NODES = 4
 SEQ_FORGE_SEED = 0xF0
+# the virtual-time simulator (phase 5(e)) at the same defaults, its clock
+# a counter advancing this many seconds a read in the two real-BLS runs
+SIM_ARGV = ("-n", str(SEQ_NODES), "-t", str(SEQ_TXS), "-b", str(SEQ_BATCH), "--lag", "100",
+            "--bw", "2000", "--cpu", "100", "--tx-size", str(SEQ_TX_BYTES), "--seed", str(SEQ_SEED))
+SIM_CLOCK_STEP = 0.000137
+# the real-BLS pair (5(e)(ii) and (iii)) is cut from the defaults' 1,000
+# transactions to this many: the unbatched run checks every share inline
+# (a ~6 ms native pairing check each), 101.5 s at 1,000 on the H100's
+# host, which put the whole script at 1,154 s of its 1,200 s limit
+SIM_REAL_TXS = 200
+# the divergent n = 64 epoch (phase 6(e)): the agreement instance whose
+# broadcast reaches only nodes 0..3 before the agreement phase
+DIV_INSTANCE = 32
+DIV_LATE = frozenset(range(4))
 # the real-BLS Remove(0) → Add(0) churn of tests/test_torch_seq_dynamic.py
 SEQ_CHURN_NODES = 4
 SEQ_CHURN_TXS = 4
@@ -874,6 +915,221 @@ def sequential_phase() -> dict:
     )
     return {"seq_qhb": seq_qhb_launches, "seq_hb16": seq_hb16_launches,
             "seq_forged": seq_forged_launches, "seq_churn": seq_churn_launches}
+
+
+# ---------------------------------------------------------------------------
+# The virtual-time simulator (phase 5(e)) and the divergent epoch (phase
+# 6(e)): importable so that the CPU tests can run them at small sizes
+# ---------------------------------------------------------------------------
+
+
+class StepClock:
+    """A ``time`` stand-in for the simulator's module: ``perf_counter``
+    advances ``step`` seconds a read, so a run's virtual times do not
+    depend on how long its handlers took."""
+
+    def __init__(self, step: float = SIM_CLOCK_STEP):
+        self.t = 0.0
+        self.step = step
+
+    def perf_counter(self) -> float:
+        self.t += self.step
+        return self.t
+
+
+def sim_cli():
+    """``examples/torch_simulation.py`` as a module (``examples/`` is not
+    a package)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "examples" / "torch_simulation.py"
+    spec = importlib.util.spec_from_file_location("torch_simulation", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sim_real_run(ops, nodes=SEQ_NODES, txs=SEQ_TXS, batch_size=SEQ_BATCH,
+                 tx_bytes=SEQ_TX_BYTES, seed=SEQ_SEED) -> dict:
+    """``simulate_queueing_honey_badger`` with real BLS on ``ops``, under
+    a :class:`StepClock` patched into the port's simulator module.
+    Returns its rows, table, message counts, every node's outputs as
+    bytes with their virtual times, the committed transactions, the
+    simulated seconds and the host wall (measured on the real clock)."""
+    import hbbft_tpu_torch.harness.simulation as PS
+
+    real = PS._time
+    PS._time = StepClock()
+    t0 = time.perf_counter()
+    try:
+        stats, _, sim_s = PS.simulate_queueing_honey_badger(
+            num_nodes=nodes, num_txs=txs, batch_size=batch_size, tx_size=tx_bytes,
+            rng=random.Random(seed), mock_crypto=False, ops=ops)
+    finally:
+        PS._time = real
+    host_s = time.perf_counter() - t0
+    net = stats.network
+    return {
+        "rows": stats.rows_as_dicts(),
+        "table": [stats.format_row(r) for r in stats.rows],
+        "messages": (net.message_count(), net.message_size()),
+        "outputs": {nid: [(t, dhb_batch_bytes(b)) for t, b in n.outputs] for nid, n in net.nodes.items()},
+        "committed": len(stats.committed_txs()),
+        "sim_s": sim_s,
+        "host_s": host_s,
+    }
+
+
+def simulator_phase() -> dict:
+    """Phase 5(e) (see the module docstring); fails the script on any
+    mismatch.  Returns the forced run's launches, flushes and shares."""
+    from hbbft_tpu_torch.harness.batching import BatchingBackend
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
+
+    # (i) mock crypto on the real clock, through the CLI
+    t0 = time.perf_counter()
+    mock = sim_cli().main(list(SIM_ARGV))
+    cli_s = time.perf_counter() - t0
+    if mock["committed"] != SEQ_TXS:
+        fail(f"simulator (mock): {mock['committed']} of {SEQ_TXS} transactions committed")
+    log(f"simulator mock N={SEQ_NODES} txs={SEQ_TXS}x{SEQ_TX_BYTES}B batch={SEQ_BATCH} through "
+        f"examples/torch_simulation.py: {mock['epochs']} epochs, every tx committed at every live "
+        f"node; wall {mock['wall_s']} s ({mock['epochs'] / mock['wall_s']} epochs/s), simulated "
+        f"{mock['sim_s']} s; the CLI call {cli_s} s")
+
+    # (ii) real BLS, batched, every flush's G1 aggregate forced onto the card
+    be = BatchingBackend(inner=forced(CudaBackend()))
+    cuda_ec.reset_launches()
+    batched = sim_real_run(be, txs=SIM_REAL_TXS)
+    launches = dict(cuda_ec.LAUNCHES)
+    # (iii) real BLS, unbatched: every share checked inline
+    before = dict(cuda_ec.LAUNCHES)
+    unbatched = sim_real_run(CudaBackend(), txs=SIM_REAL_TXS)
+    inline_launches = {k: cuda_ec.LAUNCHES[k] - before[k] for k in before}
+    if be.stats.fallback_groups != 0:
+        fail(f"simulator (real, batched) fell back: {be.stats}")
+    if be.stats.flushes < 1 or launches["win_g1"] < be.stats.flushes:
+        fail(f"simulator (real, batched): {be.stats.flushes} non-empty flushes but launches {launches}")
+    for what, run in (("batched", batched), ("unbatched", unbatched)):
+        if run["committed"] != SIM_REAL_TXS:
+            fail(f"simulator (real, {what}): {run['committed']} of {SIM_REAL_TXS} transactions committed")
+    for key in ("rows", "table", "messages", "outputs", "sim_s"):
+        if batched[key] != unbatched[key]:
+            fail(f"simulator (real): the batched run's {key} differ from the unbatched run's")
+    epochs = len(batched["rows"])
+    log("simulator real BLS epoch table (batched and unbatched alike):\n" + "\n".join(batched["table"]))
+    log(f"simulator real BLS N={SEQ_NODES} txs={SIM_REAL_TXS}: {epochs} epochs, simulated "
+        f"{batched['sim_s']} s under the step clock; rows, batches and messages "
+        f"{batched['messages']} byte-equal batched vs unbatched; host wall batched on a forced "
+        f"backend {batched['host_s']} s ({epochs / batched['host_s']} epochs/s), unbatched "
+        f"{unbatched['host_s']} s ({epochs / unbatched['host_s']} epochs/s); {be.stats.flushes} "
+        f"non-empty flushes shipping {be.stats.prefetched} shares ({be.stats.cache_hits} cache hits, "
+        f"{be.stats.cache_misses} inline checks); launches batched {launches}, unbatched "
+        f"{inline_launches}")
+    return {"launches": launches, "flushes": be.stats.flushes, "shares": be.stats.prefetched,
+            "epochs": epochs, "batched_s": batched["host_s"], "unbatched_s": unbatched["host_s"],
+            "mock_epochs_per_s": mock["epochs"] / mock["wall_s"]}
+
+
+def div_schedule(E, n: int, instance):
+    """A ``DivergentSchedule`` of epoch module ``E`` for an n-node epoch
+    whose instance ``instance`` starts with only nodes ``DIV_LATE``
+    estimating true: the last f nodes equivocate (true to class A, false
+    to class B, with their Aux); A = the first max(N − 2f, f + 1) correct
+    nodes counts an N − f true Aux prefix and decides at agreement
+    epoch 0; B, the other correct nodes, counts every false Aux it can
+    see and the true ones it needs, continues, and decides at epoch 1 on
+    A's f + 1 Terms.  At n = 11 this is tests/test_epoch_vec.py's
+    ``TestMultiEpochDivergence`` schedule."""
+    f = (n - 1) // 3
+    honest = n - f
+    size_a = max(honest - f, f + 1)
+    a, b = frozenset(range(size_a)), frozenset(range(size_a, honest))
+    if instance not in b or not DIV_LATE <= a:
+        fail(f"div_schedule: instance {instance} or the late subset does not fit n = {n}")
+    return E.DivergentSchedule(
+        classes=(a, b),
+        equiv={e: (True, False) for e in range(honest, n)},
+        equiv_aux=True,
+        directives={0: (
+            E.ClassDirective(withhold=False, aux_counted=((True, honest),)),
+            E.ClassDirective(withhold=True, aux_counted=((False, len(b) + f), (True, honest - len(b) - f))),
+        )},
+        instances=frozenset({instance}),
+    )
+
+
+def divergent_epochs(sim, n: int, runs: int, instance=DIV_INSTANCE) -> list:
+    """``runs`` epochs of ``sim`` (n nodes, every node proposing) under
+    :func:`div_schedule`; each must commit every contribution with the
+    instance's two classes deciding at agreement epochs 0 and 1 and no
+    fault.  Returns each epoch's outcome, comparable with ``==``, and
+    its wall."""
+    from hbbft_tpu_torch.core.serialize import dumps
+    from hbbft_tpu_torch.harness import epoch as E
+
+    contribs = {i: [b"div-%d" % i] for i in range(n)}
+    sched = div_schedule(E, n, instance)
+    outs = []
+    for e in range(runs):
+        t0 = time.perf_counter()
+        res = sim.run_epoch(contribs, late_subset={instance: set(DIV_LATE)}, div_schedule=sched)
+        wall = time.perf_counter() - t0
+        if not res.diverged or res.class_epochs != {instance: (0, 1)}:
+            fail(f"divergent epoch {e}: diverged {res.diverged}, class epochs {res.class_epochs}")
+        if res.batch.contributions != contribs or not res.fault_log.is_empty():
+            fail(f"divergent epoch {e}: batch of {len(res.batch.contributions)}, faults {res.fault_log}")
+        outs.append(((dumps(res.batch), res.accepted, [(f.node_id, f.kind.name) for f in res.fault_log],
+                      res.coin_flips, res.shares_verified, res.agreement_epochs, res.class_epochs), wall))
+    return outs
+
+
+def divergent_phase() -> dict:
+    """Phase 6(e) (see the module docstring): the n = 64 real-BLS epoch
+    of phase 4b(a) under :func:`div_schedule`, on the card and on the
+    host.  Its f equivocators are silent in the decryption phase, so the
+    epoch verifies 64 × 43 = 2,752 shares, below the class's 2^12
+    product band: this backend instance's band is the epoch's share
+    count, so that the flush takes the card.  Fails the script on any
+    mismatch; returns the card path's launches."""
+    from hbbft_tpu_torch.crypto.backend import CpuBackend
+    from hbbft_tpu_torch.harness.epoch import VectorizedHoneyBadgerSim
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
+
+    div_f = (EPOCH_NODES - 1) // 3
+    div_shares = EPOCH_NODES * (EPOCH_NODES - div_f)
+    div_ops = CudaBackend()
+    div_ops.G1_PRODUCT_DEVICE_MIN = div_shares
+    cuda_ec.reset_launches()
+    t0 = time.perf_counter()
+    sim = VectorizedHoneyBadgerSim(EPOCH_NODES, random.Random(EPOCH_SEED), verify_honest=True, ops=div_ops)
+    setup_s = time.perf_counter() - t0
+    card = []
+    for e in range(EPOCH_RUNS):
+        before = dict(cuda_ec.LAUNCHES)
+        card += divergent_epochs(sim, EPOCH_NODES, 1)
+        launches = {k: cuda_ec.LAUNCHES[k] - before[k] for k in before}
+        if launches != {k: int(k == "win_g1") for k in launches}:
+            fail(f"divergent epoch {e} launched {launches}, not win_g1 once")
+        if card[-1][0][4] != div_shares:
+            fail(f"divergent epoch {e} verified {card[-1][0][4]} shares, not {div_shares}")
+    if sim.be.stats.fallback_groups:
+        fail(f"divergent epochs fell back: {sim.be.stats}")
+    launches = dict(cuda_ec.LAUNCHES)
+    host_sim = VectorizedHoneyBadgerSim(EPOCH_NODES, random.Random(EPOCH_SEED), verify_honest=True,
+                                        ops=CpuBackend())
+    host = divergent_epochs(host_sim, EPOCH_NODES, EPOCH_RUNS)
+    if [o for o, _ in card] != [o for o, _ in host]:
+        fail("the divergent n = 64 epochs on the card and on the host differ")
+    log(f"divergent epoch n={EPOCH_NODES} real BLS ({div_f} equivocators; the classes decide instance "
+        f"{DIV_INSTANCE} at agreement epochs (0, 1)): setup {setup_s} s, epoch walls on the card "
+        f"{[w for _, w in card]}, on the host {[w for _, w in host]}; {div_shares} shares an epoch in "
+        f"one win_g1 launch, launches {launches}; batch bytes, accepted, faults, coins, shares, "
+        f"agreement and class epochs equal on the card and the host")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2142,9 +2398,14 @@ def main() -> int:
 
     # -- 5. the sequential engines ----------------------------------------
     seq_launches = sequential_phase()
+    # (e) the virtual-time simulator at the reference simulation's defaults
+    sim5e = simulator_phase()
 
     # -- 6. the packed co-simulation ----------------------------------------
     cosim = cosim_phase(mesh, record_err, timed, device_timed)
+
+    # (e) the n = 64 real-BLS epoch under a divergent view-class schedule
+    div_launches = divergent_phase()
 
     # -- 7. report ------------------------------------------------------
     by_path = {
@@ -2152,7 +2413,9 @@ def main() -> int:
                    "epoch64": epoch64_launches["win_g1"],
                    "epoch64_mesh": mesh64_launches["win_g1"],
                    "epoch1024": big_launches["win_g1"],
-                   **{path: n["win_g1"] for path, n in seq_launches.items()}},
+                   **{path: n["win_g1"] for path, n in seq_launches.items()},
+                   "seq_sim": sim5e["launches"]["win_g1"],
+                   "epoch64_div": div_launches["win_g1"]},
         "win_g2": {"dkg": dkg_launches["win_g2"]},
         "scan_g1": {"scalar_mul_scan": scan_launches["scan_g1"]},
         "ring_permute": {"mesh_flush": mesh_launches["ring_permute"],
@@ -2194,6 +2457,9 @@ def main() -> int:
                     win_g1_ms, win_g1_plain_ms, win_g1_bound),
                 # the N = 1024 epoch's flush shape, beside the flush's
                 epoch_k=k_big, epoch_ms=big_ms, epoch_bound_ms=big_bound[0],
+                # the simulator's forced real-BLS run (phase 5(e))
+                seq_sim={"flushes": sim5e["flushes"], "shares": sim5e["shares"],
+                         "launches": sim5e["launches"]["win_g1"]},
             ),
             dict(
                 row("win_g2", "hbbft_tpu/ops/pallas_ec.py:283", dkg_launches["win_g2"],

@@ -24,7 +24,10 @@ sequential protocol engines every validator runs (``protocols/``:
 Broadcast, Agreement, CommonSubset, HoneyBadger, SyncKeyGen,
 DynamicHoneyBadger, QueueingHoneyBadger) run on the adversarial test
 network of ``harness/network.py``, their share checks flushed in
-batches through the same backend.  The packed co-simulation
+batches through the same backend, and on the reference's virtual-time
+simulator (``harness/simulation.py``: ``SimNetwork``,
+``simulate_queueing_honey_badger``; the CLI
+``examples/torch_simulation.py``).  The packed co-simulation
 (``harness/cosim.py``: ``PackedHoneyBadgerCosim``,
 ``PackedQueueingCosim``) keeps a whole network's agreement state as
 ``[n]`` columns on the card and resolves each epoch with one launch of
@@ -37,7 +40,9 @@ Entry points run on the card unless the caller asks for the CPU:
 ``ops.backend_cuda.CudaBackend()``, ``harness.dkg.VectorizedDkg(...)``,
 ``harness.epoch.VectorizedHoneyBadgerSim(n, rng)``,
 ``harness.dynamic.VectorizedDynamicSim(n, rng)``,
-``harness.network.TestNetwork(...)`` without ``ops``,
+``harness.network.TestNetwork(...)`` and
+``harness.simulation.simulate_queueing_honey_badger(...)`` without
+``ops``,
 ``harness.cosim.PackedHoneyBadgerCosim(n, rng)``,
 ``core.network_info.NetworkInfo.generate_map(...)`` and
 ``parallel.mesh.make_mesh(n)`` mean ``torch.device("cuda")`` and raise

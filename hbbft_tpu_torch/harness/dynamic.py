@@ -32,8 +32,9 @@ queued) and is forwarded to the epoch driver; ``hw=`` (a
 account, and the era-switch epoch's account gains the on-chain DKG's
 Part and Ack rounds and its wall (``_add_dkg_virtual``).
 
-Not ported, as the epoch driver leaves it out: the divergent queueing
-schedule (``divergent=`` and friends raise in the epoch driver).  The
+The epoch driver's adversarial options (``late_subset=``, ``divergent=``,
+``div_schedule=`` and the rest) flow through ``run_epoch(**adv)`` into
+``VectorizedHoneyBadgerSim.run_epoch``, which validates them.  The
 backend every node shares is ``ops``, the card's ``CudaBackend()`` by
 default; a device or kernel error raises out of ``run_epoch``.
 """
@@ -256,7 +257,10 @@ class VectorizedDynamicSim:
         each with N encrypted values) — message sizes per
         ``sync_key_gen.rs:268-349`` shapes — plus the switch's wall as
         the cpu term (dealing is per-dealer work but verification
-        dominates and is replicated per node, as for the epoch phases)."""
+        dominates and is replicated per node, as for the epoch phases).
+        ``total_s`` is set to ``network_s + cpu_s`` afterwards, the
+        account's invariant; the reference adds each term to it in turn,
+        which can leave it one ulp away."""
         hw = self.hw
         n = len(self.validators)
         t = (n - 1) // 3
@@ -272,13 +276,12 @@ class VectorizedDynamicSim:
             secs = bytes_ * hw.inv_bw + hw.latency
             virtual.breakdown[label] = secs
             virtual.network_s += secs
-            virtual.total_s += secs
             virtual.rounds += 1
             virtual.per_node_msgs += msgs
             virtual.per_node_bytes += bytes_
         virtual.breakdown["cpu:dkg"] = cpu
         virtual.cpu_s += cpu
-        virtual.total_s += cpu
+        virtual.total_s = virtual.network_s + virtual.cpu_s
 
     # -- the era switch ----------------------------------------------------
 

@@ -35,13 +35,18 @@ an analytic virtual-time account to every result
 (:class:`VirtualEpochTime`).  ``reveal_mode="ordered"`` returns at
 ordered-commit and reveals later in one cross-epoch flush.
 
-Not ported yet (the signatures omit them, so passing one is a
-``TypeError``): the divergent view-class schedules (``divergent=``,
-``div_schedule=``), the staged deep pipeline (``pipeline="deep"`` raises
-``ValueError``), the trace recorder's events and the process-wide
-environment defaults of ``speculative`` and ``reveal_mode``.  A device
-or kernel failure raises out of ``run_epoch``; nothing falls back to the
-host.
+Divergent view classes: ``run_epoch(divergent=DivergentEpoch0(...))``
+splits the correct nodes' epoch-0 agreement views in two under
+equivocating senders, and ``div_schedule=DivergentSchedule(...)``
+carries several view classes' state across agreement epochs, so that
+classes may decide one instance at different epochs.
+
+Not ported yet: the staged deep pipeline (``pipeline="deep"`` raises
+``ValueError``); the trace recorder's events and the process-wide
+environment defaults of ``speculative``, ``reveal_mode`` and the coin
+batching (the keyword arguments and ``be`` are the one switch).  A
+device or kernel failure raises out of ``run_epoch``; nothing falls back
+to the host.
 """
 
 from __future__ import annotations
@@ -88,10 +93,151 @@ class AgreementResult:
     """All P instances' outcomes."""
 
     decisions: Dict[Any, bool]  # instance id → decided bit
-    epochs_used: Dict[Any, int]  # instance id → deciding epoch
+    epochs_used: Dict[Any, int]  # instance id → deciding epoch (the
+    # LAST class's, under a divergent schedule)
     coin_flips: int  # real threshold-coin flips executed
     crypto_flushes: int
     fault_log: FaultLog
+    diverged: bool = False  # a divergent schedule executed
+    class_epochs: Dict[Any, Tuple[int, ...]] = dataclasses.field(
+        default_factory=dict
+    )  # instance id → per-view-class deciding epochs
+    # (``DivergentSchedule`` instances only)
+
+
+@dataclasses.dataclass(frozen=True)
+class DivergentEpoch0:
+    """A two-view-class asynchronous schedule for agreement epoch 0 —
+    the delivery power of the reference's adversary
+    (``tests/network/mod.rs:151-173``): the network partitions the
+    correct nodes into classes A and B that receive epoch-0 ``BVal``
+    traffic in different orders, while ≤ f Byzantine ``equivocators``
+    send ``BVal(to_a)`` to class A and ``BVal(to_b)`` to class B and
+    stay silent otherwise.
+
+    Wave template (per affected instance; all delays are finite, so
+    this is a legal asynchronous schedule):
+
+    - W1: class A promptly receives every honest ``BVal(est)`` plus the
+      equivocators' ``to_a`` votes; relays fire; A's first
+      ``bin_values`` entry fixes its ``Aux`` value.
+    - W2: class B first receives every ``to_b``-valued ``BVal`` (honest
+      est and equivocator alike) plus its own members' est votes; the
+      opposite-valued votes from outside B are withheld; relays fire;
+      B's first ``bin_values`` entry (= ``to_b``) fixes its ``Aux``.
+    - W3: everything else is delivered (including the cross-class relay
+      waves) and the BVal relay rule runs to fixpoint in both views.
+    - W4: the ``Aux`` messages are delivered; each class terminates its
+      SBV instance against its fixpoint ``bin_values``.
+
+    Between W1 and W3 correct nodes in different classes hold
+    *different* ``bin_values`` — the state the uniform engine cannot
+    represent.  Epoch 0's coin is fixed ``true``
+    (``agreement.rs:314``), so no Conf exchange occurs and the epoch
+    outcome is decided per class from its SBV output; from epoch 1 the
+    schedule reverts to prompt uniform delivery with per-node
+    estimates (already supported by the array engine).
+    """
+
+    class_a: frozenset  # correct node ids in class A (rest of live = B)
+    equiv: Any  # Dict[sender id → (bool to_a, bool to_b)]
+    instances: frozenset  # affected instance ids
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassDirective:
+    """One view-class's delivery schedule for one agreement epoch
+    (``DivergentSchedule``).
+
+    ``withhold``: a BVal value whose epoch traffic (est votes and
+    relays alike, from every sender but the node itself) the adversary
+    delays past this class's early wave — the class's first
+    ``bin_values`` entry is then forced by the visible cascade.  All
+    delayed messages still arrive within the epoch (the full wave), so
+    this is a legal asynchronous schedule, not message loss.
+
+    ``aux_counted``: the Aux prefix this class's members count toward
+    SBV termination, as ``((value, n_senders), ...)`` — the adversary
+    delivers exactly these first, so ``vals`` is their value set even
+    when later auxes would have widened it.  Validated against
+    availability (senders must exist), ``bin_values`` membership, and
+    the N−f threshold.  ``None`` = prompt full delivery."""
+
+    withhold: Optional[bool] = None
+    aux_counted: Optional[Tuple[Tuple[bool, int], ...]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DivergentSchedule:
+    """A MULTI-EPOCH multi-class asynchronous schedule — the carried-
+    state generalization of :class:`DivergentEpoch0`: view-classes keep
+    their own ``bin_values``, sent-sets and Aux counts as engine state
+    ACROSS agreement epochs, and may decide the same instance at different epochs.  The
+    reference surface is the adversary's full per-message delivery
+    power (``tests/network/mod.rs:151-173``) exercised through the
+    threshold-relevant degrees of freedom: which BVal wave a class
+    sees first, which Aux prefix it counts, and when Terms arrive.
+
+    ``classes``: partition of the correct live nodes into view
+    classes (any count ≥ 2).
+    ``equiv``: Byzantine equivocators — node id → one epoch-0 BVal
+    value PER CLASS (silent from epoch 1, like ``DivergentEpoch0``).
+    ``equiv_aux``: equivocators also send the matching per-class Aux
+    at epoch 0 (a Byzantine Aux counts only where its value entered
+    that class's ``bin_values`` — exactly the sequential rule).
+    ``directives``: epoch → per-class :class:`ClassDirective` row;
+    epochs without a row run prompt uniform delivery.  Classes that
+    DECIDE broadcast ``Term``s, which count as BVal+Aux+Conf for the
+    still-running classes and trigger expedited termination at f+1
+    (``agreement.rs:213-228``) — the mechanism that lets a slow class
+    decide at a LATER epoch than a fast one without a coin.
+    ``instances``: affected instance ids (the rest of the epoch rides
+    the uniform array path unchanged).
+
+    Residual scope limits (raised, never silently mis-modeled):
+    undecided classes advance in lockstep (divergent decision TIMING
+    comes from per-class decisions, not per-class epoch counters), and
+    a real-coin epoch (≡ 2 mod 3) requires the undecided classes to
+    have re-converged to one view."""
+
+    classes: Tuple[frozenset, ...]
+    equiv: Any  # Mapping[node id → Tuple[bool, ...]] (one per class)
+    instances: frozenset
+    equiv_aux: bool = False
+    directives: Any = dataclasses.field(default_factory=dict)
+    # Mapping[int epoch → Tuple[Optional[ClassDirective], ...]]
+
+
+class _DivState:
+    """Carried per-instance view-class state (``DivergentSchedule``):
+    per-class decisions and Term sets persist across agreement epochs;
+    sent/bin/aux state is rebuilt each epoch from the carried
+    estimates exactly as ``SbvBroadcast.clear`` re-seeds the
+    sequential instance."""
+
+    __slots__ = ("classes", "est", "decided", "decided_at", "terms",
+                 "epoch")
+
+    def __init__(self, classes: List[List[Any]], est: Dict[Any, bool]):
+        self.classes = classes
+        self.est = dict(est)
+        self.decided: List[Optional[bool]] = [None] * len(classes)
+        self.decided_at: List[int] = [-1] * len(classes)
+        self.terms: Dict[Any, bool] = {}
+        self.epoch = 0
+
+    def done(self) -> bool:
+        return all(d is not None for d in self.decided)
+
+    def value(self) -> bool:
+        vs = {d for d in self.decided if d is not None}
+        if len(vs) != 1:
+            raise RuntimeError(
+                "agreement safety violated across view classes: %r"
+                % (self.decided,)
+            )
+        return vs.pop()
+
 
 
 class VectorizedAgreement:
@@ -143,12 +289,384 @@ class VectorizedAgreement:
         self.be = be
         self.coin_batch = be is not None
 
+    def _divergent_epoch0(self, est0, div: DivergentEpoch0, live):
+        """Evaluate one instance's epoch 0 under the two-class wave
+        template (class docstring), with exact SBV thresholds.
+
+        Returns ``(decided, est1)``: ``decided`` is the bool every
+        correct node decided at epoch 0 (or None), ``est1`` the
+        per-node epoch-1 estimates otherwise.  Raises ``ValueError``
+        when the schedule is invalid, non-divergent, or would leave
+        the two classes with different decision *timing* (a state the
+        scalar per-instance bookkeeping cannot represent)."""
+        f, N = self.f, self.N
+        equiv = dict(div.equiv)
+        honest = list(live)  # caller's run-local live, minus equiv
+        A = [nid for nid in honest if nid in div.class_a]
+        B = [nid for nid in honest if nid not in div.class_a]
+        if not A or not B:
+            raise ValueError("divergent classes must both be non-empty")
+        v_bs = {bool(tb) for _, tb in equiv.values()}
+        if len(v_bs) != 1:
+            raise ValueError("equivocators must share one to_b value")
+        v_b = v_bs.pop()
+        v_a = not v_b
+        estv = {
+            nid: bool(est0[nid]) if isinstance(est0, dict) else bool(est0)
+            for nid in honest
+        }
+
+        # sent_bval state: est counts as sent (sbv_broadcast.rs dedup)
+        sent: Dict[Any, Set[bool]] = {nid: {estv[nid]} for nid in honest}
+
+        def cnt(equiv_val_for_class):
+            """#distinct senders of each value visible: honest nodes
+            whose sent-set holds it + the equivocator votes this class
+            sees."""
+            return {
+                v: sum(1 for nid in honest if v in sent[nid])
+                + sum(
+                    1
+                    for votes in equiv.values()
+                    if equiv_val_for_class(votes) == v
+                )
+                for v in (False, True)
+            }
+
+        # -- W1: class A prompt view (v_b-valued relays withheld) -------
+        # visible: every honest est vote + equiv to_a votes + A's own
+        # v_a relays.  Guard: no A-member may want to relay v_b (its
+        # relay would be visible only to itself — per-node divergence
+        # inside a class, which the template forbids).
+        def cnt_a():
+            return cnt(lambda votes: bool(votes[0]))
+
+        changed = True
+        while changed:
+            changed = False
+            c = cnt_a()
+            if c[v_b] >= f + 1:
+                raise ValueError(
+                    "schedule invalid: class A reaches the relay "
+                    "threshold for the withheld value in wave 1"
+                )
+            if c[v_a] >= f + 1:
+                for nid in A:
+                    if v_a not in sent[nid]:
+                        sent[nid].add(v_a)
+                        changed = True
+        c = cnt_a()
+        if not (c[v_a] >= 2 * f + 1 and c[v_b] < 2 * f + 1):
+            raise ValueError(
+                "schedule non-divergent: class A's first bin_values "
+                "entry is not the prompt value"
+            )
+        aux_a = v_a
+
+        # -- W2: class B early view.  The template withholds EVERY
+        # v_a-valued BVal addressed to a B member (including B→B
+        # copies — the sequential partition filter holds them too), so
+        # the only v_a count any B node holds is its own self-handled
+        # est vote: 1 < f+1 ≤ 2f+1 for every f ≥ 1.  v_a can therefore
+        # never relay or enter bin_values early in B, no symmetric W1
+        # guard is needed, and B's first entry is v_b by construction
+        # (asserted below by the cascade check).
+        def cnt_b_early():
+            return sum(
+                1 for nid in honest if v_b in sent[nid]
+            ) + len(equiv)
+
+        changed = True
+        while changed:
+            changed = False
+            if cnt_b_early() >= f + 1:
+                for nid in B:
+                    if v_b not in sent[nid]:
+                        sent[nid].add(v_b)
+                        changed = True
+        if cnt_b_early() < 2 * f + 1:
+            raise ValueError(
+                "schedule non-divergent: class B's early cascade "
+                "never reaches bin_values"
+            )
+        aux_b = v_b
+
+        # -- W3: full delivery (equiv cross-votes excepted), joint
+        # relay fixpoint over both views ------------------------------
+        def cnt_x(is_a: bool):
+            return cnt(
+                (lambda votes: bool(votes[0]))
+                if is_a
+                else (lambda votes: v_b)
+            )
+
+        changed = True
+        while changed:
+            changed = False
+            for is_a, members in ((True, A), (False, B)):
+                c = cnt_x(is_a)
+                for v in (False, True):
+                    if c[v] >= f + 1:
+                        for nid in members:
+                            if v not in sent[nid]:
+                                sent[nid].add(v)
+                                changed = True
+        bins = {}
+        for is_a in (True, False):
+            c = cnt_x(is_a)
+            bins[is_a] = {v for v in (False, True) if c[v] >= 2 * f + 1}
+
+        # -- W4: Aux delivery and SBV termination ----------------------
+        aux_senders = {v: 0 for v in (False, True)}
+        aux_senders[aux_a] += len(A)
+        aux_senders[aux_b] += len(B)
+        outcome = {}
+        for is_a in (True, False):
+            bv = bins[is_a]
+            count = sum(aux_senders[v] for v in bv if aux_senders[v])
+            if count < N - f:
+                raise ValueError(
+                    "schedule stalls: SBV cannot terminate in class "
+                    + ("A" if is_a else "B")
+                )
+            vals = {v for v in bv if aux_senders[v]}
+            definite = next(iter(vals)) if len(vals) == 1 else None
+            # epoch 0 coin is fixed true; no Conf round
+            # (agreement.rs:314, _handle_sbvb_step with decided coin)
+            if definite is True:
+                outcome[is_a] = ("decide", True)
+            else:
+                outcome[is_a] = (
+                    "continue",
+                    definite if definite is not None else True,
+                )
+        kinds = {k for k, _ in outcome.values()}
+        if kinds == {"decide"}:
+            return True, None
+        if "decide" in kinds:
+            raise ValueError(
+                "schedule leads to per-class decision divergence at "
+                "epoch 0 — not representable by the scalar per-"
+                "instance epoch bookkeeping"
+            )
+        est1 = {}
+        for nid in honest:
+            est1[nid] = outcome[nid in div.class_a][1]
+        return None, est1
+
+    def _div_round(
+        self,
+        vs: _DivState,
+        sched: DivergentSchedule,
+        coin: Optional[bool],
+    ) -> None:
+        """Advance one :class:`DivergentSchedule` instance by ONE
+        agreement epoch, mutating the carried state ``vs``.
+
+        Exact threshold evaluation per class (relay f+1, bin_values
+        2f+1, SBV termination at N−f counted Auxes — the
+        ``sbv_broadcast.py`` constants), with decided classes
+        contributing Terms as permanent BVal+Aux senders and the f+1
+        expedited-termination rule checked first
+        (``agreement.rs:213-228``).  Every infeasible directive raises
+        rather than silently executing an impossible schedule."""
+        f, N = self.f, self.N
+        epoch = vs.epoch
+        C = len(vs.classes)
+        # -- expedited termination on queued Terms (epoch ≥ 1) ---------
+        if epoch >= 1:
+            for v in (False, True):
+                if sum(1 for tv in vs.terms.values() if tv is v) >= f + 1:
+                    for c in range(C):
+                        if vs.decided[c] is None:
+                            vs.decided[c] = v
+                            vs.decided_at[c] = epoch
+        if vs.done():
+            return
+        und = [c for c in range(C) if vs.decided[c] is None]
+        honest = [nid for c in und for nid in vs.classes[c]]
+        equiv = dict(sched.equiv) if epoch == 0 else {}
+        row = dict(sched.directives).get(epoch)
+        directives: List[Optional[ClassDirective]] = [
+            row[c] if row is not None else None for c in range(C)
+        ]
+        if coin is None:
+            raise ValueError(
+                "real-coin epoch %d reached without a coin value "
+                "(fewer than f+1 undecided honest senders?)" % epoch
+            )
+
+        def term_cnt(v: bool) -> int:
+            return sum(1 for tv in vs.terms.values() if tv is v)
+
+        def equiv_cnt(c: int, v: bool) -> int:
+            return sum(
+                1 for votes in equiv.values() if bool(votes[c]) is v
+            )
+
+        sent: Dict[Any, Set[bool]] = {
+            nid: {vs.est[nid]} for nid in honest
+        }
+
+        def cnt(c: int, v: bool, withheld: Optional[bool]) -> Dict[Any, int]:
+            """Per-node visible sender count of BVal(v) for class c
+            members (the withheld value is visible only from the node
+            itself)."""
+            if withheld is not None and v is withheld:
+                return {
+                    nid: (1 if v in sent[nid] else 0)
+                    for nid in vs.classes[c]
+                }
+            base = (
+                sum(1 for j in honest if v in sent[j])
+                + term_cnt(v)
+                + equiv_cnt(c, v)
+            )
+            return {nid: base for nid in vs.classes[c]}
+
+        def relay_fixpoint(cs, withhelds):
+            changed = True
+            while changed:
+                changed = False
+                for c in cs:
+                    for v in (False, True):
+                        per = cnt(c, v, withhelds[c])
+                        for nid in vs.classes[c]:
+                            if per[nid] >= f + 1 and v not in sent[nid]:
+                                sent[nid].add(v)
+                                changed = True
+
+        def bins_of(c: int, withheld: Optional[bool]) -> Set[bool]:
+            out = set()
+            for v in (False, True):
+                per = cnt(c, v, withheld)
+                if per and max(per.values()) >= 2 * f + 1:
+                    out.add(v)
+            return out
+
+        # -- early wave: per class, in class order, with withholds -----
+        aux: Dict[Any, bool] = {}
+        for c in und:
+            w = directives[c].withhold if directives[c] else None
+            if w is None:
+                continue
+            relay_fixpoint([c], {c: w})
+            early = bins_of(c, w)
+            if not early:
+                raise ValueError(
+                    "withhold directive leaves class %d with empty "
+                    "early bin_values at epoch %d" % (c, epoch)
+                )
+            for nid in vs.classes[c]:
+                aux[nid] = (
+                    vs.est[nid]
+                    if vs.est[nid] in early
+                    else min(early)
+                )
+
+        # -- full wave: joint relay fixpoint, everything delivered -----
+        relay_fixpoint(und, {c: None for c in und})
+        bins = {c: bins_of(c, None) for c in und}
+        for c in und:
+            if not bins[c]:
+                raise ValueError(
+                    "class %d reaches no bin_values entry at epoch %d "
+                    "— SBV cannot terminate" % (c, epoch)
+                )
+            for nid in vs.classes[c]:
+                if nid not in aux:
+                    aux[nid] = (
+                        vs.est[nid]
+                        if vs.est[nid] in bins[c]
+                        else min(bins[c])
+                    )
+
+        # -- Aux counting / SBV termination per class ------------------
+        vals: Dict[int, Set[bool]] = {}
+        for c in und:
+            avail = {
+                v: sum(1 for nid in honest if aux[nid] is v)
+                + term_cnt(v)
+                + (
+                    equiv_cnt(c, v)
+                    if (sched.equiv_aux and epoch == 0)
+                    else 0
+                )
+                for v in (False, True)
+            }
+            counted = (
+                directives[c].aux_counted if directives[c] else None
+            )
+            if counted is not None:
+                total = 0
+                vset: Set[bool] = set()
+                for v, k in counted:
+                    v = bool(v)
+                    if k > avail[v]:
+                        raise ValueError(
+                            "aux_counted wants %d Aux(%s) for class %d "
+                            "but only %d senders exist" % (k, v, c, avail[v])
+                        )
+                    if v not in bins[c]:
+                        raise ValueError(
+                            "aux_counted value %s not in class %d "
+                            "bin_values %r" % (v, c, bins[c])
+                        )
+                    total += k
+                    if k > 0:
+                        vset.add(v)
+                if total < N - f:
+                    raise ValueError(
+                        "aux_counted prefix (%d) below the N-f=%d SBV "
+                        "termination threshold" % (total, N - f)
+                    )
+                vals[c] = vset
+            else:
+                total = sum(avail[v] for v in bins[c])
+                if total < N - f:
+                    raise ValueError(
+                        "class %d counts %d Auxes in bin_values — SBV "
+                        "cannot reach N-f=%d" % (c, total, N - f)
+                    )
+                vals[c] = {v for v in bins[c] if avail[v] > 0}
+
+        # -- real-coin epochs require a re-converged view --------------
+        if epoch % 3 == 2 and len({frozenset(vals[c]) for c in und}) > 1:
+            raise ValueError(
+                "real-coin epoch %d with divergent vals across classes "
+                "— the Conf exchange is not modeled for that state"
+                % epoch
+            )
+
+        # -- decide / continue (two-phase: Terms visible next epoch) ---
+        for c in und:
+            vset = vals[c]
+            definite = next(iter(vset)) if len(vset) == 1 else None
+            if definite is not None and definite is coin:
+                vs.decided[c] = definite
+                vs.decided_at[c] = epoch
+                for nid in vs.classes[c]:
+                    vs.terms[nid] = definite
+            else:
+                nxt = definite if definite is not None else coin
+                for nid in vs.classes[c]:
+                    vs.est[nid] = nxt
+        dec_vals = {d for d in vs.decided if d is not None}
+        if len(dec_vals) > 1:
+            raise RuntimeError(
+                "agreement safety violated across view classes: %r"
+                % (vs.decided,)
+            )
+        vs.epoch += 1
+
     def run(
         self,
         est0: Dict[Any, Any],
         adv_bval: Optional[Dict[Any, Tuple[int, int]]] = None,
         adv_aux: Optional[Dict[Any, Tuple[int, int]]] = None,
         forged_coin: Optional[Set[Any]] = None,
+        divergent: Optional[DivergentEpoch0] = None,
+        div_schedule: Optional[DivergentSchedule] = None,
     ) -> AgreementResult:
         """Run every instance to its decision.
 
@@ -156,12 +674,24 @@ class VectorizedAgreement:
         (unanimous, the ACS common case) or a per-node mapping
         {node id → bool} (split inputs).
         ``adv_bval``/``adv_aux``: instance id → (#Byzantine votes for
-        false, #for true) injected into every round (≤ f each).
+        false, #for true) injected into every round — the vote-stuffing
+        shape of the reference's ``RandomAdversary`` (≤ f each; counted
+        once per round like a Byzantine sender's single allowed vote).
         ``forged_coin``: live Byzantine senders whose threshold-coin
-        signature shares are forged on every real coin flip — the
-        fused check fails, the per-share fallback attributes
-        ``INVALID_SIGNATURE_SHARE`` to exactly these senders, and every
-        coin still lands.  Real BLS only.
+        signature shares are forged (a wrong G1 point) on every real
+        coin flip — drives the grouped-RLC verification into its
+        per-share fallback, which must attribute
+        ``INVALID_SIGNATURE_SHARE`` to exactly these senders and still
+        land every coin (reference: a bad ``CommonCoin`` share is
+        dropped and logged, ``common_coin.rs:149-161``; ≥ f+1 honest
+        shares always remain).  Real BLS only (mock shares carry no
+        verifiable structure for the fallback to reject).
+        ``divergent``: a two-class epoch-0 schedule
+        (:class:`DivergentEpoch0`); ``div_schedule``: a multi-epoch
+        multi-class one (:class:`DivergentSchedule`), mutually
+        exclusive.  Their equivocators are silent senders after their
+        epoch-0 votes; an invalid or unrepresentable schedule raises
+        ``ValueError``.
         """
         forged_coin = set(forged_coin or set())
         if forged_coin:
@@ -174,14 +704,93 @@ class VectorizedAgreement:
                     "dead + forged_coin Byzantine nodes exceed the "
                     f"f={self.f} bound"
                 )
-        live = list(self.live)
-        P, f = self.P, self.f
+        diverged = False
+        live = list(self.live)  # run-local: never mutate instance state
+        div_states: Dict[int, _DivState] = {}
+        class_epochs: Dict[Any, Tuple[int, ...]] = {}
+        if div_schedule is not None:
+            if divergent is not None:
+                raise ValueError(
+                    "divergent and div_schedule are mutually exclusive"
+                )
+            sch = div_schedule
+            equiv_ids = set(sch.equiv)
+            if equiv_ids & self.dead:
+                raise ValueError("equivocators cannot also be dead")
+            if len(self.dead | equiv_ids | forged_coin) > self.f:
+                raise ValueError(
+                    "dead + equivocating + coin-forging Byzantine "
+                    f"nodes exceed the f={self.f} bound"
+                )
+            if set(sch.instances) - set(self.instance_ids):
+                raise ValueError("divergent instances unknown")
+            if any(len(votes) != len(sch.classes) for votes in
+                   dict(sch.equiv).values()):
+                raise ValueError(
+                    "each equivocator needs one BVal value per class"
+                )
+            if any(
+                len(row) != len(sch.classes)
+                for row in dict(sch.directives).values()
+            ):
+                raise ValueError(
+                    "each directive row needs one entry per class "
+                    "(None for prompt delivery)"
+                )
+            live = [nid for nid in live if nid not in equiv_ids]
+            members = [m for cl in sch.classes for m in cl]
+            if sorted(members) != sorted(live) or any(
+                not cl for cl in sch.classes
+            ):
+                raise ValueError(
+                    "classes must partition the correct live nodes "
+                    "into non-empty sets"
+                )
+            cls_lists = [sorted(cl) for cl in sch.classes]
+            for p, iid in enumerate(self.instance_ids):
+                if iid not in sch.instances:
+                    continue
+                v = est0[iid]
+                est = {
+                    nid: bool(v[nid]) if isinstance(v, dict) else bool(v)
+                    for nid in live
+                }
+                div_states[p] = _DivState(cls_lists, est)
+            diverged = True
+        div_pre: Dict[Any, Tuple[Optional[bool], Optional[Dict]]] = {}
+        if divergent is not None:
+            equiv_ids = set(divergent.equiv)
+            if equiv_ids & self.dead:
+                raise ValueError("equivocators cannot also be dead")
+            if len(self.dead | equiv_ids | forged_coin) > self.f:
+                raise ValueError(
+                    "dead + equivocating + coin-forging Byzantine "
+                    f"nodes exceed the f={self.f} bound"
+                )
+            if set(divergent.instances) - set(self.instance_ids):
+                raise ValueError("divergent instances unknown")
+            # Equivocators speak only through their epoch-0 equivocation
+            # and are silent otherwise — for the rest of this run they
+            # are absent senders, exactly like SilentAdversary nodes.
+            live = [nid for nid in live if nid not in equiv_ids]
+            for iid in sorted(divergent.instances):
+                div_pre[iid] = self._divergent_epoch0(
+                    est0[iid], divergent, live
+                )
+            diverged = True
+        P, N, f = self.P, self.N, self.f
         n_live = len(live)
         live_idx = {nid: i for i, nid in enumerate(live)}
 
         # est[p, j]: estimate of live node j in instance p
         est = np.zeros((P, n_live), dtype=np.int8)
         for p, iid in enumerate(self.instance_ids):
+            if iid in div_pre:
+                _, est1 = div_pre[iid]
+                if est1 is not None:
+                    for nid, b in est1.items():
+                        est[p, live_idx[nid]] = 1 if b else 0
+                continue
             v = est0[iid]
             if isinstance(v, dict):
                 for nid, b in v.items():
@@ -205,14 +814,25 @@ class VectorizedAgreement:
         epoch = np.zeros(P, dtype=np.int64)
         decided = np.full(P, -1, dtype=np.int8)
         decided_at = np.zeros(P, dtype=np.int64)
+        for p, iid in enumerate(self.instance_ids):
+            if iid in div_pre:
+                dec, _ = div_pre[iid]
+                if dec is not None:  # decided by every class at epoch 0
+                    decided[p] = 1 if dec else 0
+                else:  # rejoin the uniform engine at epoch 1
+                    epoch[p] = 1
         coin_flips = 0
         flushes = 0
         faults = FaultLog()
+        is_div = np.zeros(P, dtype=bool)
+        for p in div_states:
+            is_div[p] = True
 
         for _ in range(self.MAX_EPOCHS):
             active = decided < 0
             if not active.any():
                 break
+            arr_active = active & ~is_div
             # --- SBV broadcast round (sbv_broadcast.py thresholds) ----
             # Initial BVal counts: each live node multicasts BVal(est).
             cnt = np.zeros((P, 2), dtype=np.int64)
@@ -237,51 +857,126 @@ class VectorizedAgreement:
             has1 = (aux_val == 1).any(axis=1) | (bin_vals[:, 1] & (aa[:, 1] > 0))
             has0 = (aux_val == 0).any(axis=1) | (bin_vals[:, 0] & (aa[:, 0] > 0))
             # (Conf round, epochs ≡ 2 mod 3: every correct node confs
-            # this same uniform vals set — a no-op in this schedule.)
+            # this same uniform vals set, trivially ⊇ N−f — uniformity
+            # makes the Conf exchange a no-op in this schedule.)
 
             # --- the coin (agreement.rs:314-328) ----------------------
             sched = epoch % 3
             coin = np.zeros(P, dtype=np.int8)
             coin[sched == 0] = 1
-            need_real = active & (sched == 2)
-            reqs: List[Tuple[int, bytes, List[Any]]] = []
-            for p in np.flatnonzero(need_real):
-                idx = self.ref.node_index(self.instance_ids[p])
-                nonce = make_nonce(
-                    self.ref.invocation_id(),
-                    self.session_id,
-                    idx if idx is not None else int(p),
-                    int(epoch[p]),
-                )
-                reqs.append((int(p), nonce, live))
-            if reqs:
-                if self.coin_batch:
+            need_real = arr_active & (sched == 2)
+            arr_reqs: List[Tuple[int, bytes, List[Any]]] = []
+            if need_real.any():
+                real_ps = np.flatnonzero(need_real)
+                arr_reqs = [
+                    (
+                        int(p),
+                        make_nonce(
+                            self.ref.invocation_id(),
+                            self.session_id,
+                            self.ref.node_index(self.instance_ids[p])
+                            if self.ref.node_index(self.instance_ids[p])
+                            is not None
+                            else int(p),
+                            int(epoch[p]),
+                        ),
+                        live,
+                    )
+                    for p in real_ps
+                ]
+            # divergent instances' coin needs, collected up front: with
+            # the coin-batching plane their shares ride the SAME fused
+            # flush as the array path's instead of one flush each
+            div_coin: Dict[int, Optional[bool]] = {}
+            div_reqs: List[Tuple[int, bytes, List[Any]]] = []
+            for p, vs in sorted(div_states.items()):
+                if vs.done():
+                    continue
+                e = vs.epoch
+                if e % 3 == 0:
+                    div_coin[p] = True
+                elif e % 3 == 1:
+                    div_coin[p] = False
+                else:
+                    # real coin: shares come from the still-running
+                    # honest nodes only (decided classes terminated
+                    # this instance; equivocators are Byzantine)
+                    senders = [
+                        nid
+                        for ci in range(len(vs.classes))
+                        if vs.decided[ci] is None
+                        for nid in vs.classes[ci]
+                    ]
+                    div_coin[p] = None
+                    if len(senders) >= self.f + 1:
+                        iid = self.instance_ids[p]
+                        idx = self.ref.node_index(iid)
+                        nonce = make_nonce(
+                            self.ref.invocation_id(),
+                            self.session_id,
+                            idx if idx is not None else int(p),
+                            e,
+                        )
+                        div_reqs.append((int(p), nonce, senders))
+            if self.coin_batch:
+                reqs = arr_reqs + div_reqs
+                if reqs:
                     values, nfl = self._flip_coins_batched(
                         reqs, faults, forged=forged_coin
                     )
-                else:
+                    flushes += nfl
+                    coin_flips += len(reqs)
+                    for p, _nonce, _l in arr_reqs:
+                        coin[p] = 1 if values[p] else 0
+                    for p, _nonce, _l in div_reqs:
+                        div_coin[p] = values[p]
+            else:
+                if arr_reqs:
                     values, nfl = self._flip_coins(
-                        [(p, nonce) for p, nonce, _l in reqs],
+                        [(p, nonce) for p, nonce, _l in arr_reqs],
                         faults,
                         forged=forged_coin,
                         live=live,
                     )
-                flushes += nfl
-                coin_flips += len(reqs)
-                for p, v in values.items():
-                    coin[p] = 1 if v else 0
+                    flushes += nfl
+                    coin_flips += len(arr_reqs)
+                    for p, v in values.items():
+                        coin[p] = 1 if v else 0
+                for p, nonce, senders in div_reqs:
+                    values, nfl = self._flip_coins(
+                        [(p, nonce)],
+                        faults,
+                        forged=forged_coin,
+                        live=senders,
+                    )
+                    flushes += nfl
+                    coin_flips += 1
+                    div_coin[p] = values.get(p)
 
             # --- decide or next epoch (agreement.rs:291-310) ----------
             definite = has1 ^ has0  # exactly one value in vals
             def_val = np.where(has1 & ~has0, 1, 0).astype(np.int8)
-            decide_now = active & definite & (def_val == coin)
+            decide_now = arr_active & definite & (def_val == coin)
             decided[decide_now] = def_val[decide_now]
             decided_at[decide_now] = epoch[decide_now]
-            cont = active & ~decide_now
+            cont = arr_active & ~decide_now
             # est' = the definite value, else the coin
             new_est = np.where(definite, def_val, coin)  # [P]
             est[cont, :] = new_est[cont, None]
             epoch[cont] += 1
+
+            # --- divergent view-class instances (carried state) -------
+            for p, vs in sorted(div_states.items()):
+                if vs.done():
+                    continue
+                self._div_round(vs, div_schedule, div_coin[p])
+                if vs.done():
+                    val = vs.value()
+                    decided[p] = 1 if val else 0
+                    decided_at[p] = max(vs.decided_at)
+                    class_epochs[self.instance_ids[p]] = tuple(
+                        vs.decided_at
+                    )
 
         if (decided < 0).any():
             raise RuntimeError(
@@ -290,14 +985,18 @@ class VectorizedAgreement:
             )
         return AgreementResult(
             decisions={
-                iid: bool(decided[p]) for p, iid in enumerate(self.instance_ids)
+                iid: bool(decided[p])
+                for p, iid in enumerate(self.instance_ids)
             },
             epochs_used={
-                iid: int(decided_at[p]) for p, iid in enumerate(self.instance_ids)
+                iid: int(decided_at[p])
+                for p, iid in enumerate(self.instance_ids)
             },
             coin_flips=coin_flips,
             crypto_flushes=flushes,
             fault_log=faults,
+            diverged=diverged,
+            class_epochs=class_epochs,
         )
 
     # -- batched real coin --------------------------------------------------
@@ -539,6 +1238,10 @@ class EpochResult:
     phases: Optional[Dict[str, float]] = None  # wall seconds per epoch
     # phase: propose / rbc / agreement / decrypt / assembly, the decrypt
     # round's (dec_*) and the flush's (flush_*) stages, commit_latency
+    diverged: bool = False  # the agreement ran a divergent schedule
+    class_epochs: Dict[Any, Tuple[int, ...]] = dataclasses.field(
+        default_factory=dict
+    )  # ``AgreementResult.class_epochs`` (``div_schedule`` instances)
 
 
 class VectorizedHoneyBadgerSim:
@@ -668,6 +1371,8 @@ class VectorizedHoneyBadgerSim:
         adv_aux: Optional[Dict[Any, Tuple[int, int]]] = None,
         forged_coin: Optional[Set[Any]] = None,
         late_subset: Optional[Dict[Any, Set[Any]]] = None,
+        divergent: Optional[DivergentEpoch0] = None,
+        div_schedule: Optional[DivergentSchedule] = None,
         wan: Optional[Any] = None,
     ) -> EpochResult:
         """Advance every correct node through one complete epoch.
@@ -683,6 +1388,10 @@ class VectorizedHoneyBadgerSim:
         ``forged_coin``: ``VectorizedAgreement.run`` semantics.
         ``late_subset``: proposer → the nodes whose copy of that
         proposer's broadcast completes before the agreement phase.
+        ``divergent``/``div_schedule``: a divergent view-class schedule
+        for the agreement phase (``VectorizedAgreement.run``); its
+        equivocators are silent in every later phase (decryption treats
+        them like ``dead``).
         ``wan``: a ``harness.wan.WanModel`` / bound ``WanSchedule`` —
         materialized for this epoch as crashed nodes (merged into
         ``dead``) and per-proposer timely-delivery subsets (merged into
@@ -734,6 +1443,8 @@ class VectorizedHoneyBadgerSim:
             adv_aux=adv_aux,
             forged_coin=forged_coin,
             late_subset=late_subset,
+            divergent=divergent,
+            div_schedule=div_schedule,
             walls_head={"propose": _t_prop - _t0, "rbc": _t_rbc - _t_prop},
             diag=diag,
             commit_t0=_t0,
@@ -753,6 +1464,8 @@ class VectorizedHoneyBadgerSim:
         adv_aux: Optional[Dict[Any, Tuple[int, int]]] = None,
         forged_coin: Optional[Set[Any]] = None,
         late_subset: Optional[Dict[Any, Set[Any]]] = None,
+        divergent: Optional[DivergentEpoch0] = None,
+        div_schedule: Optional[DivergentSchedule] = None,
         walls_head: Optional[Dict[str, float]] = None,
         diag: Optional[Dict[str, bool]] = None,
         commit_t0: Optional[float] = None,
@@ -818,9 +1531,20 @@ class VectorizedHoneyBadgerSim:
             be=self.be,
         )
         res = ag.run(
-            est0, adv_bval=adv_bval, adv_aux=adv_aux, forged_coin=forged_coin
+            est0,
+            adv_bval=adv_bval,
+            adv_aux=adv_aux,
+            forged_coin=forged_coin,
+            divergent=divergent,
+            div_schedule=div_schedule,
         )
         faults.merge(res.fault_log)
+        # divergent equivocators are Byzantine: silent in every later
+        # phase, exactly like dead nodes
+        if divergent is not None:
+            dead = dead | set(divergent.equiv)
+        if div_schedule is not None:
+            dead = dead | set(div_schedule.equiv)
         accepted = sorted(pid for pid, yes in res.decisions.items() if yes)
 
         _t_agree = _time.perf_counter()
@@ -857,6 +1581,8 @@ class VectorizedHoneyBadgerSim:
                 shares_verified=0,
                 agreement_epochs=res.epochs_used,
                 phases=phases,
+                diverged=res.diverged,
+                class_epochs=res.class_epochs,
             )
             self._pending_reveals.append(
                 _PendingReveal(
@@ -944,6 +1670,8 @@ class VectorizedHoneyBadgerSim:
             observer_batch=observer_batch,
             virtual=virtual,
             phases=phases,
+            diverged=res.diverged,
+            class_epochs=res.class_epochs,
         )
 
     # -- order-then-reveal: the deferred reveal plane -----------------------

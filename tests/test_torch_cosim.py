@@ -163,6 +163,11 @@ def test_unsupported_adversaries_raise():
     packed = _port(4, 0)
     with pytest.raises(ValueError):
         packed.run_epoch(_contribs(4, 0), corrupt_shards={0: {1}})
+    # the divergent view classes run on the dict plane only, as in the
+    # reference's packed co-sim
+    for k in ("divergent", "div_schedule"):
+        with pytest.raises(ValueError, match=k):
+            packed.run_epoch(_contribs(4, 0), **{k: object()})
     with pytest.raises(TypeError):
         packed.run_epoch(_contribs(4, 0), bogus_adversary=1)
     with pytest.raises(ValueError):

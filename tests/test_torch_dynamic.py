@@ -12,8 +12,9 @@ with churn (mock n = 7, real n = 4), the join plan with an observer that
 verifies a signature of the new era, the churn with the DKG's device
 engine forced on both sides (its keys are sampled by different
 generators, so the user contributions and membership are compared), and
-the options the port leaves out raising (``wan=`` and ``hw=`` are held
-against the reference in ``tests/test_torch_virtual.py``).
+a divergent view-class schedule passed through to the epoch driver
+(``wan=`` and ``hw=`` are held against the reference in
+``tests/test_torch_virtual.py``).
 """
 
 import random
@@ -205,15 +206,50 @@ def test_churn_with_the_device_dealing_plane(monkeypatch):
     assert [r[2] for r in outs["port"]] == [1, 1, 1]
 
 
+def _div_schedule(side, classes=None):
+    """tests/test_epoch_vec.py's multi-epoch schedule at n = 11 on instance
+    6: class {0..4} decides at agreement epoch 0, class {5, 6, 7} at 1;
+    8-10 equivocate."""
+    from hbbft_tpu.harness import epoch as RE
+    from hbbft_tpu_torch.harness import epoch as PE
+
+    E = PE if side == "port" else RE
+    return E.DivergentSchedule(
+        classes=classes or (frozenset(range(5)), frozenset({5, 6, 7})),
+        equiv={e: (True, False) for e in (8, 9, 10)},
+        equiv_aux=True,
+        directives={0: (
+            E.ClassDirective(withhold=False, aux_counted=((True, 8),)),
+            E.ClassDirective(withhold=True, aux_counted=((False, 6), (True, 2))),
+        )},
+        instances=frozenset({6}),
+    )
+
+
 def test_left_out_options_raise():
-    sim = PD.VectorizedDynamicSim(4, random.Random(1), mock=True, ops=CudaBackend(device="cpu"))
-    q = PD.VectorizedDynamicQueueingSim(4, random.Random(1), mock=True, ops=CudaBackend(device="cpu"))
-    with pytest.raises(TypeError):
-        sim.run_epoch({i: [b"x"] for i in range(4)}, divergent=object())
-    with pytest.raises(TypeError):
-        sim.run_epoch({i: [b"x"] for i in range(4)}, div_schedule=object())
-    with pytest.raises(TypeError):
-        q.run_epoch(divergent=object())
+    """The dynamic drivers pass ``div_schedule=`` through to the epoch
+    driver: a valid schedule gives the reference's epochs, an invalid one
+    the reference's ``ValueError``."""
+    outs = {}
+    for side, (mod, C, dumps) in SIDES.items():
+        sim = mod.VectorizedDynamicSim(11, random.Random(0xD5), mock=True, **_kw(side))
+        q = mod.VectorizedDynamicQueueingSim(11, random.Random(0xD6), batch_size=22, mock=True, **_kw(side))
+        q.input_all([b"dq-%02d" % i for i in range(33)])
+        late = {6: {0, 1, 2, 3}}
+        rows = []
+        for tag in range(2):
+            res = sim.run_epoch({i: [b"dv-%d-%d" % (i, tag)] for i in sim.validators},
+                                late_subset=late, div_schedule=_div_schedule(side))
+            rows.append(_outcome(side, res))
+            rows.append(_outcome(side, q.run_epoch(late_subset=late, div_schedule=_div_schedule(side))))
+        assert 6 in res.inner.accepted
+        bad = _div_schedule(side, classes=(frozenset(range(5)), frozenset({5, 6})))
+        with pytest.raises(ValueError, match="partition") as a:
+            sim.run_epoch({i: [b"x"] for i in sim.validators}, div_schedule=bad)
+        with pytest.raises(ValueError, match="partition") as b:
+            q.run_epoch(div_schedule=bad)
+        outs[side] = rows, str(a.value), str(b.value)
+    assert outs["port"] == outs["ref"]
 
 
 def test_wire_tags_match_reference():

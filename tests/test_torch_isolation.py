@@ -1,8 +1,10 @@
 """The port stands alone: no JAX, nothing of ``hbbft_tpu``, no silent CPU.
 
-- every module of ``hbbft_tpu_torch`` (and ``chip_smoke.py``) imports
-  in a fresh interpreter where ``jax`` and ``hbbft_tpu`` are blocked;
-- no source file of the port, nor ``chip_smoke.py`` or the port's
+- every module of ``hbbft_tpu_torch`` (and ``chip_smoke.py`` and
+  ``examples/torch_simulation.py``) imports in a fresh interpreter where
+  ``jax`` and ``hbbft_tpu`` are blocked;
+- no source file of the port, nor ``chip_smoke.py``, the port's
+  simulation example (``examples/torch_simulation.py``) or its
   measurement scripts (``scripts/torch_*.py``), has an import of
   ``jax`` or of ``hbbft_tpu`` (as opposed to ``hbbft_tpu_torch``);
 - the entry points default to the card and raise without CUDA.
@@ -29,6 +31,8 @@ assert "hbbft_tpu_torch.parallel.mesh" in names
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+sys.path.insert(0, "examples")
+import torch_simulation
 assert not any(k == "jax" or k.startswith(("jax.", "hbbft_tpu.")) for k, v in sys.modules.items() if v is not None)
 print(len(names))
 """
@@ -36,7 +40,7 @@ print(len(names))
 
 def _sources():
     scripts = sorted((ROOT / "scripts").glob("torch_*.py"))
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + scripts
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "examples" / "torch_simulation.py"] + scripts
 
 
 def test_every_module_imports_without_jax_or_reference():
@@ -73,6 +77,7 @@ def test_cuda_backend_raises_without_cuda(monkeypatch):
     from hbbft_tpu_torch.harness.batching import BatchingBackend
     from hbbft_tpu_torch.harness.cosim import PackedHoneyBadgerCosim, PackedQueueingCosim
     from hbbft_tpu_torch.harness.dkg import VectorizedDkg
+    from hbbft_tpu_torch.harness.simulation import simulate_queueing_honey_badger
     from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
     from hbbft_tpu_torch.parallel.mesh import make_mesh
 
@@ -91,6 +96,13 @@ def test_cuda_backend_raises_without_cuda(monkeypatch):
         PackedHoneyBadgerCosim(4, random.Random(0))  # the co-sim's columns live on the card
     with pytest.raises(RuntimeError, match="CUDA"):
         PackedQueueingCosim(4, random.Random(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate_queueing_honey_badger(4, num_txs=4, batch_size=4)  # the simulator's nodes
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_simulation
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        torch_simulation.main(["-n", "4", "-t", "4", "-b", "4"])  # --device cuda by default
     assert PackedHoneyBadgerCosim(4, random.Random(0), device="cpu").device.type == "cpu"
     assert make_mesh(4, device="cpu").devices == [torch.device("cpu")] * 4
     assert VectorizedDkg(range(4), 1, random.Random(0), device="cpu").device.type == "cpu"

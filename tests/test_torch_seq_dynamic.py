@@ -9,7 +9,11 @@ the DHB validation case of ``tests/test_adversarial.py``, each run
 through the reference and the port (``ops=CudaBackend(device="cpu")``)
 from one seed.  Step sequences, every ``DhbBatch`` (epoch,
 contributions, change, key set) by ``dumps`` bytes and fault logs are
-identical (tolerance 0).  The churn with real BLS is not run through
+identical (tolerance 0).  The port's sequential churn is also held
+against its vectorized era change (``harness/dynamic.py``), as the
+reference's ``tests/test_dkg_vec.py`` holds its own two engines: the
+same changes in order, the same committed set, the same final
+validators.  The churn with real BLS is not run through
 the reference (about 8 s of CPU for that side alone): ``chip_smoke.py``'s
 phase 5(d) runs it on the port, on the card and on the host, and
 ``test_real_bls_churn_on_the_port`` runs the same driver here.
@@ -74,6 +78,69 @@ def _dhb_churn(side, seed, txs_per_node=4):
 def test_dhb_remove_then_add_matches_reference():
     ref, port = twin(_dhb_churn, 80)
     assert min(port["era"]) > 0
+
+
+def _vectorized_churn(pkg, n, seed, ops=None):
+    """``tests/test_dkg_vec.py``'s ``test_matches_sequential_churn_semantics``
+    cycle on one package's ``VectorizedDynamicSim``: every node votes
+    ``Remove(0)``; once it completes, the validators vote ``Add(0)`` with
+    node 0's key; then one more epoch.  Returns the completed changes,
+    the committed transactions, the final validators and every epoch's
+    outcome as ``dumps`` bytes."""
+    import importlib
+
+    Dyn = importlib.import_module(f"{pkg}.harness.dynamic")
+    C = importlib.import_module(f"{pkg}.protocols.change")
+    dumps = importlib.import_module(f"{pkg}.core.serialize").dumps
+    sim = Dyn.VectorizedDynamicSim(n, random.Random(seed), mock=True, **({"ops": ops} if ops else {}))
+    txs = {nid: [b"tx-%d-%d" % (nid, i) for i in range(2)] for nid in range(n)}
+    committed, changes, epochs = set(), [], []
+
+    def run(contribs):
+        r = sim.run_epoch(contribs)
+        committed.update(r.batch.tx_iter())
+        epochs.append(dumps((r.batch, r.change, r.era, list(r.validators))))
+        return r
+
+    for v in range(n):
+        sim.vote_for(v, C.Remove(0))
+    changes.append(run(txs).change)
+    assert 0 not in sim.validators
+    pk = sim.pub_keys[0]
+    for v in sim.validators:
+        sim.vote_for(v, C.Add(0, pk))
+    changes.append(run({i: txs[i] for i in sim.validators}).change)
+    # common subset needs >= N - f proposers every epoch: the rest propose
+    # empty contributions while node 0 catches up
+    run({i: (txs[i] if i == 0 else []) for i in sim.validators})
+    return changes, committed, sorted(sim.validators), epochs
+
+
+def test_matches_sequential_churn_semantics():
+    """The port's two engines through the same Remove(0) → Add(0) cycle
+    (the reference's cross-engine gate): the sequential
+    DynamicHoneyBadger network and the vectorized dynamic sim complete
+    the same changes in order, commit the same transactions and end
+    with the same validators; the vectorized run also equals the
+    reference's ``VectorizedDynamicSim`` epoch for epoch."""
+    from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
+
+    C = PORT.change
+    net = _dhb_churn(PORT, 88, txs_per_node=2)["net"]
+    seq_node = net.nodes[0]
+    seq_changes = [b.change for b in seq_node.outputs if isinstance(b.change, C.Complete)]
+    assert [type(c.change) for c in seq_changes] == [C.Remove, C.Add]
+    n = len(net.nodes)
+    changes, committed, validators, epochs = _vectorized_churn(
+        "hbbft_tpu_torch", n, 89, ops=CudaBackend(device="cpu"))
+    assert all(isinstance(c, C.Complete) for c in changes)
+    assert changes[0].change == seq_changes[0].change == C.Remove(0)
+    # the Add keys are per-run key material (different dealing seeds)
+    assert changes[1].change.node_id == seq_changes[1].change.node_id == 0
+    assert committed == _committed(seq_node)
+    assert validators == sorted(seq_node.instance.netinfo.all_ids)
+    ref = _vectorized_churn("hbbft_tpu", n, 89)
+    assert epochs == ref[3] and committed == ref[1] and validators == ref[2]
 
 
 def test_real_bls_churn_on_the_port():

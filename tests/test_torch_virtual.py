@@ -139,6 +139,21 @@ def test_era_switch_adds_the_dkg_rounds(mock, n, seed):
     assert "dkg-part" not in b2.inner.virtual.breakdown
 
 
+def test_dkg_terms_keep_total_equal_to_network_plus_cpu():
+    """``_add_dkg_virtual`` on an account whose terms, added one by one to
+    ``total_s`` as the reference does, end one ulp away from
+    ``network_s + cpu_s`` (n = 6, network 0.1 s, cpu 0.011 s, a 43 ms
+    DKG wall): the port keeps the account's invariant exactly."""
+    from hbbft_tpu_torch.harness.epoch import VirtualEpochTime
+
+    sim = PD.VectorizedDynamicSim(6, random.Random(0), mock=True, ops=_cpu(), hw=PHw.from_flags(*FLAGS))
+    v = VirtualEpochTime(total_s=0.1 + 0.011, rounds=0, per_node_msgs=0, per_node_bytes=0,
+                         network_s=0.1, cpu_s=0.011, breakdown={})
+    sim._add_dkg_virtual(v, 0.043)
+    assert v.total_s == v.network_s + v.cpu_s
+    assert v.cpu_s == 0.011 + 0.043 and v.rounds == 2
+
+
 def test_dynamic_queueing_takes_hw_and_wan():
     """The dynamic queueing stack under ``hw=`` and a WAN model with a
     correlated failure: the crash set merges before queue sampling, and
