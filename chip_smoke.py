@@ -8,7 +8,8 @@ In order, and with no phase's failure caught:
 1. **Build** — the native host library (``make -C native``) and every
    CUDA kernel of the port (``win_g1``, ``win_g2``, ``scan_g1``,
    ``ring_permute``, ``fr_matmul`` with ``fr_planes`` in one source, and
-   ``cosim_step`` with ``cosim_hist`` in one source; one ``nvcc`` per
+   ``cosim_step`` with ``cosim_hist`` in one source, ``sha256`` with
+   ``merkle_level`` in one source, and ``gf_matmul``; one ``nvcc`` per
    source, all at once), with
    the build seconds and ``ptxas`` resource lines printed.
 2. **Kernels against their plain versions** — at K = 1000 (not a
@@ -66,7 +67,8 @@ In order, and with no phase's failure caught:
    same dealing with one row cell perturbed must make the fused check
    return False on the card.  ``win_g2`` is then timed once on the
    DKG's whole fused MSM, and once beside its plain version on the
-   first 16,384 rows; the kernel must equal the plain version at
+   first 4,096 rows (``G2_PLAIN_ROWS``, cut from 16,384 for the time
+   limit); the kernel must equal the plain version at
    canonical values on those rows and on the last 1,000 (the plain
    version takes about 0.6 ms a row).
 4b. **The HoneyBadger epoch** — ``VectorizedHoneyBadgerSim`` end to end
@@ -88,8 +90,15 @@ In order, and with no phase's failure caught:
    proposer — the fault log must name exactly that sender and the batch
    hold all 974 live contributions; then a warm honest epoch — its batch
    equal to the contributions, 974² shares verified, no fallback group —
-   with its wall and phase walls.  Each of the two launches ``win_g1``
-   exactly once and no other kernel.  ``win_g1`` is
+   with its wall and phase walls, and its RBC wall split by work
+   (``harness.rbc_probe.RbcProbe``: parity, decode and dead-row products,
+   the backend's trees, the independent re-root), which also gives the
+   parity product's shape to phase 7.  Each of the two launches ``win_g1``
+   exactly once, no other EC, Fr or co-sim kernel, and each RBC kernel
+   exactly as often as the backend's default size rules send the calls
+   the probe saw to the card (a tree one ``sha256`` and a
+   ``merkle_level`` a level, a codec product one ``gf_matmul``; the same
+   holds for every epoch and sequential run below).  ``win_g1`` is
    then timed once at that flush's shape (948,676 points, 96-bit
    scalars), its first and last 1,000 rows held against the plain
    version (the whole shape would take the plain version about a
@@ -130,13 +139,18 @@ In order, and with no phase's failure caught:
 4d. **scan_g1** — lies on no production path: its entry point
    ``scalar_mul_scan`` (the counterpart of ``scalar_mul_pallas``) is
    driven once at K = 65,536 × 255 bits and checked against native on a
-   sample, then the kernel and its plain version are timed there.
+   sample, then the kernel is timed there and, beside its plain version
+   (checked against it), on its first 8,192 rows (``SCAN_TIME_K``, cut
+   from 65,536 for the time limit).
 5. **The sequential engines** — the protocol state machines on the
    port's ``TestNetwork``, every share check through
    ``BatchingBackend(inner=CudaBackend())``; a *forced* backend has
    ``G1_PRODUCT_DEVICE_MIN = G1_DEVICE_MIN = 1`` on its ``CudaBackend``
    instance alone, so every flush, however small, runs its G1 MSMs
-   (``win_g1``) on the card.  (a) QueueingHoneyBadger over
+   (``win_g1``) on the card, and its RBC size rules at their floor
+   (``RBC_FLOOR``), so every codec product and every tree or hash batch
+   of 8 or more uniform items runs on the card (``gf_matmul``,
+   ``sha256``, ``merkle_level``).  (a) QueueingHoneyBadger over
    DynamicHoneyBadger at the reference simulation's defaults (10 nodes,
    none dead, 1,000 transactions of 10 bytes, batch 100, ``Random(0)``,
    SilentAdversary with the RANDOM scheduler, real BLS) on a forced
@@ -231,7 +245,36 @@ In order, and with no phase's failure caught:
    lowered to that count) in exactly one ``win_g1`` launch an epoch —
    and a ``CpuBackend()`` twin with the same batch bytes, accepted set,
    fault log, coin flips, share count, agreement and class epochs.
-7. **Report** — the ``kernels`` JSON line (launches counted per path:
+7. **The reliable-broadcast plane and the mesh's sharded programs** —
+   (a) each new kernel against its plain version on the card, tolerance
+   0, and against an independent host: ``sha256`` against ``hashlib`` at
+   messages of 0, 1, 55, 56, 63, 64, 119, 120 and 47,672 bytes (the 1 MB
+   broadcast's leaf message) at batches 1, 7 and 1,000 (the plain
+   version once on the 1,000, whose first rows are the smaller batches);
+   ``merkle_levels_device`` against ``MerkleTree.levels`` at 1, 2, 3, 11,
+   64 and 1,024 leaves (2-byte leaves; 47,663-byte ones up to 64) and
+   ``merkle_level`` against its plain version on every level;
+   ``gf_matmul`` against its plain version and the native
+   ``RS._matmul`` / ``_matmul16``: W = 8 at ``[42, 22] × [22, 47,663]``, a
+   ``[22, 22]`` decode, 1, 3 and 4,097 columns, all-zero and all-0xFF
+   data; W = 16 at the N = 1024 epoch's ``[682, 342] × [342, 974·L/2]``
+   (L from phase 4b, printed), its ``[342, 342]`` decode and its dead
+   rows ``[50, 342] × [342, L/2]``.  (b) ``bench_broadcast_1mb``
+   (config 3, ``bench.py:904-938``): 64 nodes, 21 silent,
+   ``Random(0xB0).randbytes(1 << 20)`` broadcast by node 0 over the port's
+   ``TestNetwork`` (``broadcast_1mb``), on a forced ``CudaBackend()`` and
+   on ``CpuBackend()``: every good node outputs the payload, both
+   deliver the same messages (count and a digest of their wire bytes),
+   and the card run launches each RBC kernel at least once, exactly as
+   its rules sent.  (d) The sharded programs of ``parallel/mesh.py`` on
+   the 4-shard mesh at k = 64, 255-bit scalars (``mesh_programs_check``):
+   G1 and G2 ``sharded_msm_fn``, ``sharded_windowed_g1_msm``,
+   ``sharded_g1_msm`` and ``sharded_epoch_crypto_fn`` against native
+   ``g1_multi_exp`` / ``g2_multi_exp`` and ``hashlib``, each launching
+   the kernels it names once a shard.  (e) Each new kernel timed on the
+   card's timeline at the shapes of (a) and (b), with its bound and its
+   plain version's time.
+8. **Report** — the ``kernels`` JSON line (launches counted per path:
    each path's counts are set to 0 just before it and read just after —
    the flush, the mesh flush, the DKG, the n = 64 epochs on the card
    (``epoch64``), on the mesh (``epoch64_mesh``) and the N = 1024
@@ -246,7 +289,7 @@ In order, and with no phase's failure caught:
    ``launches_by_path`` lists every path's, ``fr_matmul``'s and
    ``fr_planes``' with ``fr_check`` and ``dkg_coeffs``; ``win_g2``'s row
    is timed
-   on the DKG's first 16,384 rows and adds ``dkg_ms`` /
+   on the DKG's first 4,096 rows and adds ``dkg_ms`` /
    ``dkg_bound_ms`` at its whole 30,976; ``win_g1``'s row is timed at
    the flush's 65,536 points and adds ``epoch_ms`` / ``epoch_bound_ms``
    at the N = 1024 epoch's 948,676; ``fr_matmul``'s is timed at the
@@ -264,7 +307,14 @@ In order, and with no phase's failure caught:
    (``floor_ms``), the step's grid empty and crossing its barrier
    (``grid_ms``, ``barrier_ms``); ``cosim_hist``'s is timed alone, its
    ``launches`` the mesh twin's, its library call one ``index_add_``;
-   both bound by their bytes),
+   both bound by their bytes; ``sha256``, ``merkle_level`` and
+   ``gf_matmul``'s ``launches`` are the forced 1 MB broadcast's,
+   ``launches_by_path`` every path's, the epochs', the sequential runs'
+   and the churn's included; ``sha256`` is timed at 1,000 × 47,672 B,
+   ``merkle_level`` at 512 parents, ``gf_matmul`` at the broadcast's W = 8
+   parity product with the N = 1024 epoch's W = 16 one in ``w16``, its
+   library column ``torch._int_mm`` on the binary expansion's shape, which
+   is not the same function; every other shape is in ``shapes``),
    the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -298,9 +348,13 @@ DKG_NODES = 64
 DKG_T = 21
 DKG_SEED = 0xD6
 # win_g2's plain version is timed on this many of the DKG's rows (about
-# 0.6 ms a row; 16,384 keeps the script well inside its time limit)
-G2_PLAIN_ROWS = 1 << 14
+# 0.6 ms a row); cut from 16,384 for the script's time limit
+G2_PLAIN_ROWS = 1 << 12
 SCAN_BITS = 255
+# scan_g1 is timed beside its plain version on this many of the entry
+# point's rows (cut from 65,536 for the script's time limit; the kernel
+# alone is also timed at 65,536)
+SCAN_TIME_K = 1 << 13
 MESH_SHARDS = 4
 RING_ROWS = (GROUPS, 5)
 RING_REPS = 200
@@ -384,6 +438,25 @@ HW_FLAGS = (100, 2000, 100)
 # the step's nine columns in packed_cosim_step_fn's order (reach third
 # from the front, params last)
 COSIM_ROWS = ("prop_on", "dst_on", "zone", "ovr_mask", "ovr_c1", "forged_cnt", "commit")
+
+# The reliable-broadcast plane (phase 7): SHA-256 message lengths (empty,
+# one byte, the padding's edges at 55/56 and 63/64, the two-to-three-block
+# edge at 119/120, and the 1 MB broadcast's leaf message 0x00 ‖ index ‖ a
+# 47,663-byte shard) and batches; Merkle leaf counts
+RBC_SEED = 0xBC
+RBC_SHA_LENGTHS = (0, 1, 55, 56, 63, 64, 119, 120, 47_672)
+RBC_SHA_BATCHES = (1, 7, 1000)
+RBC_LEAVES = (1, 2, 3, 11, 64, 1024)
+# bench_broadcast_1mb (bench.py:904-938): 64 nodes, 21 of them silent, a
+# 1 MB payload from Random(0xB0); 22 data shards of 47,663 bytes, 42 parity
+BCAST_NODES = 64
+BCAST_PAYLOAD = 1 << 20
+BCAST_SEED = 0xB0
+# the mesh's sharded programs: tests/test_parallel.py's inputs at
+# full 255-bit scalars
+MESH_K = 64
+# kernel launches timed back to back on the card's timeline
+RBC_REPS = 10
 
 # The card's peak int32 multiply-add rate: the published fp32 rate of an
 # H100 SXM (67 TFLOP/s = 2 flops per FMA lane-clock) halved for the
@@ -542,6 +615,60 @@ def fr_bound(m: int, k: int, p: int, acc: bool):
     return fr_bound_macs(m * k * p, nbytes)
 
 
+# 32-bit integer operations of one SHA-256 compression as the function
+# needs them on this card: 48 schedule words (σ0 and σ1, each two rotates
+# as funnel shifts, a shift and one three-input xor: 4 ops; the four-term
+# sum as 2 IADD3) and 64 rounds (Σ1 and Σ0: 4 each; ch and maj one LOP3
+# each; t1's five-term sum 2 IADD3; a = t1 + Σ0 + maj one IADD3; e = d + t1
+# one IADD), then 8 adds into the state: 1,384.
+SHA_OPS_PER_BLOCK = 48 * (4 + 4 + 2) + 64 * (4 + 1 + 2 + 4 + 1 + 1 + 1) + 8
+# The card's int32 issue rate for shifts, logical ops and adds: 64 lanes an
+# SM a clock, as for IMAD (PEAK_IMAD_PER_S).
+PEAK_INT32_OPS_PER_S = PEAK_IMAD_PER_S
+
+
+def ops_or_bytes(ops: int, nbytes: int):
+    """(bound ms, "operations" or "bytes"): the larger of ``ops`` 32-bit
+    integer operations at the int32 issue rate and ``nbytes`` over HBM."""
+    ops_ms = ops / PEAK_INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def sha_bound(batch: int, nblocks: int):
+    """``batch`` messages of ``nblocks`` padded blocks: the compressions'
+    operations, or the blocks read and the digests written."""
+    return ops_or_bytes(batch * nblocks * SHA_OPS_PER_BLOCK, batch * (64 * nblocks + 32))
+
+
+def merkle_bound(parents: int):
+    """One Merkle level of ``parents`` nodes: two compressions a node
+    (0x01 ‖ l ‖ r is 65 bytes), 64 bytes read and 32 written."""
+    return ops_or_bytes(parents * 2 * SHA_OPS_PER_BLOCK, parents * 96)
+
+
+def gf_bound(W: int, m: int, k: int, n: int):
+    """An [m, k] GF(2^W) matrix times [k, n] symbols, the operations
+    counted two ways: as the kernel's XOR-ANDs (one three-input logical op,
+    y ^= mask & c, a bit of W, an (i, j) pair and a 32-bit lane of 32/W
+    symbols; the masks' making is shared by the rows and not counted) at
+    the int32 issue rate, and as the reference's binary-expansion product
+    [W·m, W·k]·[W·k, n] on the int8 tensor cores (the parity and packing
+    not counted).  The smaller is the card's least time for the work, the
+    larger of that and the bytes (the matrix and the data read once, the
+    output written once, W/8 bytes a symbol) the bound, as in
+    :func:`fr_bound_macs`.  Returns (bound ms, "operations" or "bytes",
+    XOR ms, tensor ms)."""
+    lanes = -(-n * W // 32)
+    xor_ms = W * m * k * lanes / PEAK_INT32_OPS_PER_S * 1e3
+    tc_ms = (W * m) * (W * k) * n / PEAK_INT8_MAC_PER_S * 1e3
+    ops_ms = min(xor_ms, tc_ms)
+    bytes_ms = (m * k + k * n + m * n) * W // 8 / PEAK_BYTES_PER_S * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", xor_ms, tc_ms
+    return bytes_ms, "bytes", xor_ms, tc_ms
+
+
 # ---------------------------------------------------------------------------
 # The sequential engines (phase 5): runs over the port's TestNetwork,
 # importable so that the CPU tests can run them at small sizes
@@ -549,11 +676,36 @@ def fr_bound(m: int, k: int, p: int, acc: bool):
 
 
 def forced(backend):
-    """``backend`` (a ``CudaBackend``) with its size band opened on this
+    """``backend`` (a ``CudaBackend``) with its size bands opened on this
     instance alone: every G1 MSM of a flush, however small, runs on the
-    card (the class values stay 2^12)."""
+    card (the class values stay 2^12), and so does its reliable-broadcast
+    plane, every rule at its floor (``RBC_FLOOR``: SHA-256 batches and
+    trees of 8 or more uniform items, every codec product)."""
     backend.G1_PRODUCT_DEVICE_MIN = backend.G1_DEVICE_MIN = 1
+    for name, value in backend.RBC_FLOOR.items():
+        setattr(backend, name, value)
     return backend
+
+
+def check_launches(what: str, launches: dict, sent: dict, ec: dict) -> None:
+    """A path launched the EC, ring, Fr and co-sim kernels of ``ec`` (by
+    name; absent names 0) exactly, and each RBC kernel exactly as often as
+    the backend's size rules send the path's calls to the card (``sent``,
+    an ``RbcProbe``'s)."""
+    from hbbft_tpu_torch.ops.cuda_ec import RBC_KERNELS
+
+    want = {k: sent[k] if k in RBC_KERNELS else ec.get(k, 0) for k in launches}
+    if launches != want:
+        fail(f"{what} launched {launches}, not {want}")
+
+
+def check_rbc(what: str, launches: dict, sent: dict) -> None:
+    """A run (counts reset just before it) launched each RBC kernel exactly
+    as often as the size rules send its calls to the card (``sent``)."""
+    from hbbft_tpu_torch.ops.cuda_ec import RBC_KERNELS
+
+    if {k: launches[k] for k in RBC_KERNELS} != sent:
+        fail(f"{what}: RBC launches {launches}, the size rules send {sent}")
 
 
 def dhb_batch_bytes(batch) -> bytes:
@@ -812,6 +964,7 @@ def sequential_phase() -> dict:
     from hbbft_tpu_torch.core.serialize import dumps as wire_dumps
     from hbbft_tpu_torch.harness.batching import BatchingBackend
     from hbbft_tpu_torch.harness.epoch import VectorizedHoneyBadgerSim
+    from hbbft_tpu_torch.harness.rbc_probe import RbcProbe
     from hbbft_tpu_torch.ops import cuda_ec
     from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
 
@@ -819,18 +972,27 @@ def sequential_phase() -> dict:
         inner = CudaBackend()
         return BatchingBackend(inner=forced(inner) if force else inner)
 
+    def seq_run(run, be, what: str, ec=None):
+        """``run(be)`` with the counts set to 0 just before it; its launches
+        are read just after, and with ``ec`` (an unforced run) must be those
+        EC kernels and the RBC kernels its size rules send to the card."""
+        cuda_ec.reset_launches()
+        with RbcProbe(be.inner) as probe:
+            out = run(be)
+        launches = dict(cuda_ec.LAUNCHES)
+        if ec is None:
+            check_rbc(what, launches, probe.sent)
+        else:
+            check_launches(what, launches, probe.sent, ec)
+        return out, launches
+
     # (a) QHB over DHB at the reference simulation's defaults, on a forced
     # backend (every flush's G1 MSMs on the card), then on the host
     be = seq_backend(True)
-    cuda_ec.reset_launches()
-    qhb = seq_qhb_run(be)
-    seq_qhb_launches = dict(cuda_ec.LAUNCHES)
+    qhb, seq_qhb_launches = seq_run(seq_qhb_run, be, "sequential QHB (forced)")
     qhb_stats = be.stats
     be_host = seq_backend(False)
-    before = dict(cuda_ec.LAUNCHES)
-    qhb_host = seq_qhb_run(be_host)
-    if cuda_ec.LAUNCHES != before:
-        fail("the unforced sequential QHB run launched a kernel")
+    qhb_host, _ = seq_run(seq_qhb_run, be_host, "the unforced sequential QHB run", {})
     for batches in qhb["batches"].values():
         for e, b in enumerate(batches):
             if any(bs[e] != b for bs in qhb["batches"].values() if len(bs) > e):
@@ -852,9 +1014,8 @@ def sequential_phase() -> dict:
 
     # (b) HoneyBadger at N = 16 with 5 dead against the vectorized epoch
     be = seq_backend(True)
-    cuda_ec.reset_launches()
-    contributions, seq_batch, hb16_s = seq_hb_first_batch(be)
-    seq_hb16_launches = dict(cuda_ec.LAUNCHES)
+    (contributions, seq_batch, hb16_s), seq_hb16_launches = seq_run(
+        seq_hb_first_batch, be, "sequential HoneyBadger N=16 (forced)")
     live = set(range(SEQ_HB_NODES - SEQ_HB_DEAD))
     sim = VectorizedHoneyBadgerSim(SEQ_HB_NODES, random.Random(SEQ_HB_SEED + 1))
     vec = sim.run_epoch({i: c for i, c in contributions.items() if i in live},
@@ -872,9 +1033,8 @@ def sequential_phase() -> dict:
 
     # (c) one forged real decryption share, forced and on the host
     be = seq_backend(True)
-    cuda_ec.reset_launches()
-    forged_batch, forged_faults, forger = seq_forged_share(be)
-    seq_forged_launches = dict(cuda_ec.LAUNCHES)
+    (forged_batch, forged_faults, forger), seq_forged_launches = seq_run(
+        seq_forged_share, be, "forged share (forced)")
     be_host = seq_backend(False)
     host_batch, host_faults, _ = seq_forged_share(be_host)
     named = [f for fs in forged_faults.values() for f in fs]
@@ -892,14 +1052,9 @@ def sequential_phase() -> dict:
 
     # (d) the real-BLS Remove(0) → Add(0) churn, forced and on the host
     be = seq_backend(True)
-    cuda_ec.reset_launches()
-    churn = seq_dhb_churn(be)
-    seq_churn_launches = dict(cuda_ec.LAUNCHES)
+    churn, seq_churn_launches = seq_run(seq_dhb_churn, be, "real-BLS churn (forced)")
     be_host = seq_backend(False)
-    before = dict(cuda_ec.LAUNCHES)
-    churn_host = seq_dhb_churn(be_host)
-    if cuda_ec.LAUNCHES != before:
-        fail("the unforced real-BLS churn launched a kernel")
+    churn_host, _ = seq_run(seq_dhb_churn, be_host, "the unforced real-BLS churn", {})
     if churn["batches"] != churn_host["batches"] or churn["eras"] != churn_host["eras"]:
         fail("real-BLS churn: the forced run's batches differ from the host run's")
     if churn["eras"][0] < 1 or be.stats.fallback_groups != 0:
@@ -985,6 +1140,7 @@ def simulator_phase() -> dict:
     """Phase 5(e) (see the module docstring); fails the script on any
     mismatch.  Returns the forced run's launches, flushes and shares."""
     from hbbft_tpu_torch.harness.batching import BatchingBackend
+    from hbbft_tpu_torch.harness.rbc_probe import RbcProbe
     from hbbft_tpu_torch.ops import cuda_ec
     from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
 
@@ -1002,12 +1158,14 @@ def simulator_phase() -> dict:
     # (ii) real BLS, batched, every flush's G1 aggregate forced onto the card
     be = BatchingBackend(inner=forced(CudaBackend()))
     cuda_ec.reset_launches()
-    batched = sim_real_run(be, txs=SIM_REAL_TXS)
+    with RbcProbe(be.inner) as probe:
+        batched = sim_real_run(be, txs=SIM_REAL_TXS)
     launches = dict(cuda_ec.LAUNCHES)
     # (iii) real BLS, unbatched: every share checked inline
     before = dict(cuda_ec.LAUNCHES)
     unbatched = sim_real_run(CudaBackend(), txs=SIM_REAL_TXS)
     inline_launches = {k: cuda_ec.LAUNCHES[k] - before[k] for k in before}
+    check_rbc("simulator (real, batched, forced)", launches, probe.sent)
     if be.stats.fallback_groups != 0:
         fail(f"simulator (real, batched) fell back: {be.stats}")
     if be.stats.flushes < 1 or launches["win_g1"] < be.stats.flushes:
@@ -1096,6 +1254,7 @@ def divergent_phase() -> dict:
     mismatch; returns the card path's launches."""
     from hbbft_tpu_torch.crypto.backend import CpuBackend
     from hbbft_tpu_torch.harness.epoch import VectorizedHoneyBadgerSim
+    from hbbft_tpu_torch.harness.rbc_probe import RbcProbe
     from hbbft_tpu_torch.ops import cuda_ec
     from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
 
@@ -1110,10 +1269,10 @@ def divergent_phase() -> dict:
     card = []
     for e in range(EPOCH_RUNS):
         before = dict(cuda_ec.LAUNCHES)
-        card += divergent_epochs(sim, EPOCH_NODES, 1)
+        with RbcProbe(div_ops, sim) as probe:
+            card += divergent_epochs(sim, EPOCH_NODES, 1)
         launches = {k: cuda_ec.LAUNCHES[k] - before[k] for k in before}
-        if launches != {k: int(k == "win_g1") for k in launches}:
-            fail(f"divergent epoch {e} launched {launches}, not win_g1 once")
+        check_launches(f"divergent epoch {e}", launches, probe.sent, {"win_g1": 1})
         if card[-1][0][4] != div_shares:
             fail(f"divergent epoch {e} verified {card[-1][0][4]} shares, not {div_shares}")
     if sim.be.stats.fallback_groups:
@@ -1532,6 +1691,404 @@ def cosim_phase(mesh, record_err, timed, device_timed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The reliable-broadcast plane (phase 7): importable, so that the CPU tests
+# run its drivers at small sizes
+# ---------------------------------------------------------------------------
+
+
+def broadcast_1mb(ops, nodes=BCAST_NODES, payload_bytes=BCAST_PAYLOAD, seed=BCAST_SEED) -> dict:
+    """``bench_broadcast_1mb`` (config 3, ``bench.py:904-938``) on the
+    port: ``Broadcast(ni, 0)`` over a ``TestNetwork`` of ``nodes`` nodes,
+    ⌊(nodes − 1)/3⌋ of them silent (``SilentAdversary`` with the RANDOM
+    scheduler), node 0 broadcasting ``Random(seed).randbytes(payload_bytes)``.
+    Every good node must output the payload.  Returns the wall, the count
+    of messages delivered and a digest of their (sender, recipient, wire
+    bytes), tallied by the network's delivery filter (which delivers
+    everything)."""
+    import hashlib
+
+    from hbbft_tpu_torch.core.serialize import dumps
+    from hbbft_tpu_torch.harness.network import MessageScheduler, SilentAdversary, TestNetwork
+    from hbbft_tpu_torch.protocols.broadcast import Broadcast
+
+    rng = random.Random(seed)
+    payload = rng.randbytes(payload_bytes)
+    digest, count = hashlib.sha256(), [0]
+
+    def tally(sender, recipient, message) -> bool:
+        count[0] += 1
+        digest.update(repr((sender, recipient)).encode() + dumps(message))
+        return True
+
+    faulty = (nodes - 1) // 3
+    net = TestNetwork(
+        nodes - faulty, faulty,
+        lambda adv: SilentAdversary(MessageScheduler(MessageScheduler.RANDOM, rng)),
+        lambda ni: Broadcast(ni, 0), rng, ops=ops, message_filter=tally,
+    )
+    t0 = time.perf_counter()
+    net.input(0, payload)
+    net.step_until(lambda: all(n.terminated() for n in net.nodes.values()))
+    wall = time.perf_counter() - t0
+    if not all(n.outputs == [payload] for n in net.nodes.values()):
+        fail(f"broadcast n={nodes}: a good node did not output the payload")
+    return {"wall_s": wall, "messages": count[0], "digest": digest.hexdigest(),
+            "good": len(net.nodes)}
+
+
+def sha256_plain_replayed(blocks):
+    """``ops/sha256.sha256_plain`` of CUDA ``blocks``, its compression (the
+    plain version's own torch ops, ~3,600 a block, launch-bound when
+    issued one by one: ~22–39 s at 745 blocks on the H100's host) captured
+    once as a CUDA graph and replayed block after block — the same
+    kernels on the same inputs, without a Python dispatch an op.  CPU
+    blocks run ``sha256_plain`` itself."""
+    import torch
+
+    from hbbft_tpu_torch.ops import sha256 as SH
+
+    if blocks.device.type != "cuda":
+        return SH.sha256_plain(blocks)
+    x = SH._lanes(blocks)
+    B = x.shape[0]
+    state = torch.tensor(SH._H0.astype(np.int64), device=x.device)[:, None].repeat(1, B)
+    block = torch.zeros((16, B), dtype=torch.int64, device=x.device)
+
+    def step():
+        return torch.stack(SH._compress_plain(list(state.unbind(0)), list(block.unbind(0))))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()  # warm-up, off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for blk in range(x.shape[1]):
+        block.copy_(x[:, blk, :].T)
+        graph.replay()
+        state.copy_(out)
+    return SH._to_int32(state.T.contiguous())
+
+
+def sha_check(record_err, lengths=RBC_SHA_LENGTHS, batches=RBC_SHA_BATCHES, seed=RBC_SEED,
+              device=None) -> dict:
+    """``sha256`` against ``hashlib`` and, on the same blocks, its plain
+    version (computed once on the largest batch, whose first rows are the
+    smaller batches; on the card through :func:`sha256_plain_replayed`,
+    itself held against the eager plain version at the 120-byte length),
+    at every length and batch.  Returns the plain version's ms at each
+    length."""
+    import hashlib
+
+    import torch
+
+    from hbbft_tpu_torch.ops import sha256 as SH
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    gen = np.random.default_rng(seed)
+    plain_ms = {}
+    for length in lengths:
+        raw = gen.integers(0, 256, size=(max(batches), length), dtype=np.uint8)
+        msgs = [row.tobytes() for row in raw]
+        blocks = torch.from_numpy(SH.pad_messages(msgs).view(np.int32)).to(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = sha256_plain_replayed(blocks)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        plain_ms[length] = (time.perf_counter() - t0) * 1e3
+        if length == 120 and not torch.equal(plain, SH.sha256_plain(blocks)):
+            fail("the replayed plain SHA-256 differs from the eager plain version")
+        want = [hashlib.sha256(m).digest() for m in msgs]
+        for b in batches:
+            got = SH.sha256(blocks[:b])
+            record_err("sha256", got, plain[:b], f"at {b} × {length} B")
+            if SH.digests_to_bytes(got) != want[:b]:
+                fail(f"sha256 at {b} × {length} B differs from hashlib")
+    return plain_ms
+
+
+def merkle_check(record_err, leaves=RBC_LEAVES, lengths=(2, 47_663), seed=RBC_SEED,
+                 device=None) -> None:
+    """``merkle_levels_device`` against ``MerkleTree.levels`` at every leaf
+    count (uniform 2-byte leaves, the N = 1024 epoch's shards, and the 1 MB
+    broadcast's 47,663-byte ones up to 64 leaves), and ``merkle_level``
+    against its plain version on every level of each tree."""
+    import torch
+
+    from hbbft_tpu_torch.crypto.merkle import MerkleTree
+    from hbbft_tpu_torch.ops import sha256 as SH
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    gen = np.random.default_rng(seed)
+    for length in lengths:
+        for n in leaves:
+            if length > 1024 and n > 64:
+                continue
+            vals = [gen.integers(0, 256, size=length, dtype=np.uint8).tobytes() for _ in range(n)]
+            levels = SH.merkle_levels_device(vals, dev)
+            if levels != MerkleTree(vals).levels:
+                fail(f"merkle_levels_device at {n} leaves of {length} B differs from MerkleTree")
+            for lvl in levels[:-1]:
+                words = torch.from_numpy(
+                    np.frombuffer(b"".join(lvl), dtype=">u4").astype(np.uint32).view(np.int32)
+                ).reshape(-1, 8).to(dev)
+                record_err("merkle_level", SH.merkle_level(words), SH.merkle_level_plain(words),
+                           f"at {len(lvl)} children ({n} leaves of {length} B)")
+
+
+def gf_check(record_err, epoch_cols: int, seed=RBC_SEED, device=None, nodes8=BCAST_NODES,
+             payload=BCAST_PAYLOAD, nodes16=BIG_NODES, dead16=BIG_DEAD) -> None:
+    """``gf_matmul`` against its plain version and the native host
+    product (``RS._matmul`` / ``RS._matmul16``), tolerance 0: W = 8 at the
+    1 MB broadcast's parity ``[42, 22] × [22, 47,663]`` and a ``[22, 22]``
+    decode, at 1, 3 and 4,097 columns, on all-zero and all-0xFF data;
+    W = 16 at the N = 1024 epoch's parity ``[682, 342] × [342,
+    epoch_cols]``, its ``[342, 342]`` decode and its dead rows ``[50, 342]
+    × [342, epoch_cols / 974]`` (the CPU tests shrink the node counts)."""
+    import torch
+
+    from hbbft_tpu_torch.crypto import rs as RS
+    from hbbft_tpu_torch.ops import gf256 as GF
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    gen = np.random.default_rng(seed)
+
+    def check(mat, data, host, what):
+        t = torch.from_numpy(data if data.dtype == np.uint8 else data.view(np.int16)).to(dev)
+        got = GF.gf_matmul(mat, t)
+        record_err("gf_matmul", got, GF.gf_matmul_plain(mat, t), what)
+        got_np = got.cpu().numpy()
+        if data.dtype == np.uint16:
+            got_np = got_np.view(np.uint16)
+        if not np.array_equal(got_np, host(mat, data)):
+            fail(f"gf_matmul {what} differs from the native host product")
+
+    k8 = nodes8 - 2 * ((nodes8 - 1) // 3)
+    codec = RS.ReedSolomon(k8, nodes8 - k8)
+    shard = -(-(payload + 4) // k8)
+    parity = codec.matrix[k8:]
+    dec = codec.decode_matrix(sorted(gen.choice(nodes8, k8, replace=False).tolist()))
+    rand8 = lambda k, n: gen.integers(0, 256, size=(k, n), dtype=np.uint8)  # noqa: E731
+    check(parity, rand8(k8, shard), RS._matmul, f"W=8 parity [{len(parity)}, {k8}]·[{k8}, {shard}]")
+    check(dec, rand8(k8, shard), RS._matmul, f"W=8 decode [{k8}, {k8}]·[{k8}, {shard}]")
+    for n in (1, 3, 4097):
+        check(parity, rand8(k8, n), RS._matmul, f"W=8 parity at {n} columns")
+    for fill in (0x00, 0xFF):
+        check(parity, np.full((k8, 4097), fill, np.uint8), RS._matmul,
+              f"W=8 parity on all-{fill:#04x} data")
+    n16 = nodes16
+    k16 = n16 - 2 * ((n16 - 1) // 3)
+    codec16 = RS.ReedSolomon16(k16, n16 - k16)
+    rand16 = lambda k, n: gen.integers(0, 1 << 16, size=(k, n), dtype=np.uint16)  # noqa: E731
+    dead = list(range(n16 - dead16, n16))
+    dec16 = codec16.decode_matrix([i for i in range(n16) if i not in dead][:k16])
+    per = max(epoch_cols // (n16 - dead16), 1)
+    check(codec16.matrix[k16:], rand16(k16, epoch_cols), RS._matmul16,
+          f"W=16 parity [{n16 - k16}, {k16}]·[{k16}, {epoch_cols}]")
+    check(dec16, rand16(k16, epoch_cols), RS._matmul16,
+          f"W=16 decode [{k16}, {k16}]·[{k16}, {epoch_cols}]")
+    check(codec16.matrix[dead], rand16(k16, per), RS._matmul16,
+          f"W=16 dead rows [{len(dead)}, {k16}]·[{k16}, {per}]")
+
+
+def mesh_programs_check(mesh, k: int = MESH_K, nbits: int = 255, seed=RBC_SEED) -> dict:
+    """The five sharded programs of ``parallel/mesh.py`` on ``mesh`` against
+    the host (native ``g1_multi_exp`` / ``g2_multi_exp``, ``hashlib``) on
+    ``tests/test_parallel.py``'s inputs, ``k`` points and ``nbits``-bit
+    scalars; each builder must launch the kernels it names, one a shard
+    (and ``ring_permute`` once a sending card a ring round).  Returns each
+    builder's launches."""
+    import hashlib
+
+    from hbbft_tpu_torch.crypto import fields as F
+    from hbbft_tpu_torch.crypto.curve import G1_GEN, G2_GEN, g1_multi_exp, g2_multi_exp
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops import ec as EC
+    from hbbft_tpu_torch.ops import limbs as LB
+    from hbbft_tpu_torch.ops import sha256 as SH
+    from hbbft_tpu_torch.parallel import mesh as PM
+
+    rng = random.Random(seed)
+    on_card = mesh.devices[0].type == "cuda"
+    rounds = (mesh.size - 1) * len(cuda_ec.ring_plan(mesh.devices)) if on_card else 0
+    shards = mesh.size if on_card else 0
+    sks = [rng.randrange(1, F.R) for _ in range(k)]
+    pts = [G1_GEN * s for s in sks]
+    pks = [G2_GEN * s for s in sks]
+    scalars = [rng.randrange(1 << nbits) % F.R for _ in range(k)]
+    bits = LB.scalars_to_bits(scalars, nbits)
+    out = {}
+
+    def run(name, fn, want, launches):
+        cuda_ec.reset_launches()
+        got = fn()
+        out[name] = {n: v for n, v in cuda_ec.LAUNCHES.items() if v}
+        want_l = {n: c for n, c in launches.items() if c}
+        if out[name] != want_l:
+            fail(f"{name} on {mesh} launched {out[name]}, not {want_l}")
+        if got != want:
+            fail(f"{name} on {mesh} differs from the host")
+
+    g1_want, g2_want = g1_multi_exp(pts, scalars), g2_multi_exp(pks, scalars)
+    run("sharded_msm_fn", lambda: EC.g1_from_limbs(PM.sharded_msm_fn(mesh)(EC.g1_to_limbs(pts), bits)),
+        g1_want, {"scan_g1": shards, "ring_permute": rounds})
+    run("sharded_msm_fn(g2)",
+        lambda: EC.g2_from_limbs(PM.sharded_msm_fn(mesh, g2=True)(EC.g2_to_limbs(pks), bits)),
+        g2_want, {"win_g2": shards, "ring_permute": rounds})
+    run("sharded_windowed_g1_msm", lambda: PM.sharded_windowed_g1_msm(pts, scalars, mesh, nbits),
+        g1_want, {"win_g1": shards, "ring_permute": rounds})
+    run("sharded_g1_msm", lambda: PM.sharded_g1_msm(pts, scalars, mesh), g1_want,
+        {"scan_g1": shards, "ring_permute": rounds})
+    base = G1_GEN * 7
+    shares = [base * s for s in sks]
+    msgs = [bytes([i % 256]) * 20 for i in range(k)]
+
+    def step():
+        agg1, agg2, dg = PM.sharded_epoch_crypto_fn(mesh)(
+            EC.g1_to_limbs(shares), bits, EC.g2_to_limbs(pks), SH.pad_messages(msgs)[:, 0, :])
+        return EC.g1_from_limbs(agg1), EC.g2_from_limbs(agg2), SH.digests_to_bytes(dg)
+
+    run("sharded_epoch_crypto_fn", step,
+        (g1_multi_exp(shares, scalars), g2_want, [hashlib.sha256(m).digest() for m in msgs]),
+        {"scan_g1": shards, "win_g2": shards, "sha256": shards, "ring_permute": 2 * rounds})
+    return out
+
+
+def rbc_phase(record_err, timed, device_timed, epoch_cols: int, mesh) -> dict:
+    """Phase 7 (see the module docstring) on the card; fails the script on
+    any mismatch.  ``epoch_cols``: the byte columns of the N = 1024
+    epoch's parity product (phase 4b), P·L, so its symbol columns are
+    P·L/2.  Returns the kernels' times, bounds and each path's launches."""
+    import torch
+
+    from hbbft_tpu_torch.crypto.backend import CpuBackend
+    from hbbft_tpu_torch.harness.rbc_probe import RbcProbe
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops import gf256 as GF
+    from hbbft_tpu_torch.ops import sha256 as SH
+    from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
+    from hbbft_tpu_torch.crypto import rs as RS
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    out = {}
+    cols16 = epoch_cols // 2
+
+    # (a) each kernel against its plain version and the host
+    cuda_ec.reset_launches()
+    sha_plain_ms = sha_check(record_err)
+    merkle_check(record_err)
+    gf_check(record_err, cols16)
+    out["rbc_check"] = dict(cuda_ec.LAUNCHES)
+    log(f"rbc (a): sha256 equal to its plain version and hashlib at {RBC_SHA_BATCHES} × "
+        f"{RBC_SHA_LENGTHS} B; merkle_levels_device equal to MerkleTree at {RBC_LEAVES} leaves "
+        f"and merkle_level to its plain version on every level; gf_matmul W=8 and W=16 equal to "
+        f"its plain version and the native products (the N={BIG_NODES} epoch's L = "
+        f"{epoch_cols // (BIG_NODES - BIG_DEAD)} bytes a shard, {cols16} symbol columns); "
+        f"launches {out['rbc_check']}")
+
+    # (b) config 3 on a forced card backend and on the host
+    card_be = forced(CudaBackend())
+    cuda_ec.reset_launches()
+    with RbcProbe(card_be) as probe:
+        card = broadcast_1mb(card_be)
+    out["broadcast1mb"] = dict(cuda_ec.LAUNCHES)
+    check_launches("the forced 1 MB broadcast", out["broadcast1mb"], probe.sent, {})
+    if any(out["broadcast1mb"][k] < 1 for k in cuda_ec.RBC_KERNELS):
+        fail(f"the forced 1 MB broadcast did not launch every RBC kernel: {out['broadcast1mb']}")
+    host = broadcast_1mb(CpuBackend())
+    if (card["messages"], card["digest"]) != (host["messages"], host["digest"]):
+        fail(f"the 1 MB broadcast's messages differ: card {card}, host {host}")
+    out["broadcast"] = {"card_s": card["wall_s"], "host_s": host["wall_s"],
+                        "messages": card["messages"]}
+    log(f"rbc (b) broadcast n={BCAST_NODES} ({card['good']} good) of {BCAST_PAYLOAD} B: every good "
+        f"node output the payload; forced card {card['wall_s']} s, host {host['wall_s']} s; "
+        f"{card['messages']} messages, wire digest {card['digest'][:16]} equal on both; "
+        f"launches {out['broadcast1mb']}")
+
+    # (d) the mesh's sharded programs
+    out["mesh_programs"] = mesh_programs_check(mesh)
+    log(f"rbc (d) sharded programs on {mesh}, k={MESH_K}, 255-bit scalars: G1 and G2 "
+        f"sharded_msm_fn, sharded_windowed_g1_msm, sharded_g1_msm and sharded_epoch_crypto_fn "
+        f"equal to native and hashlib; launches " + json.dumps(out["mesh_programs"]))
+
+    # (e) times on the card's timeline at the shapes of (a) and (b)
+    gen = np.random.default_rng(RBC_SEED + 1)
+
+    def blocks_of(batch, length):
+        raw = gen.integers(0, 256, size=(batch, length), dtype=np.uint8)
+        return torch.from_numpy(SH.pad_messages([r.tobytes() for r in raw]).view(np.int32)).to(dev)
+
+    def kernel_ms(fn):
+        fn()  # warm-up
+        return device_timed(fn, RBC_REPS)
+
+    sha_rows = []
+    for batch, length in ([(max(RBC_SHA_BATCHES), n) for n in RBC_SHA_LENGTHS]
+                          + [(BCAST_NODES, RBC_SHA_LENGTHS[-1]), (BIG_NODES, 11)]):
+        blocks = blocks_of(batch, length)
+        b = sha_bound(batch, blocks.shape[1])
+        sha_rows.append({"batch": batch, "bytes": length, "ms": kernel_ms(lambda: SH.sha256(blocks)),
+                         "bound_ms": b[0], "bound_by": b[1]})
+    row = sha_rows[len(RBC_SHA_LENGTHS) - 1]
+    out["sha256"] = dict(row, plain_ms=sha_plain_ms[RBC_SHA_LENGTHS[-1]], shapes=sha_rows)
+    merkle_rows = []
+    for parents in (BIG_NODES // 2, BCAST_NODES // 2):
+        level = blocks_of(2 * parents, 32)[:, 0, :8].contiguous()
+        b = merkle_bound(parents)
+        merkle_rows.append({"parents": parents, "ms": kernel_ms(lambda: SH.merkle_level(level)),
+                            "bound_ms": b[0], "bound_by": b[1]})
+        if parents == BIG_NODES // 2:
+            _, plain_ms = timed(lambda: SH.merkle_level_plain(level))
+    out["merkle_level"] = dict(merkle_rows[0], plain_ms=plain_ms, shapes=merkle_rows)
+
+    def gf_row(W, mat, cols, what, plain_lib=False):
+        k = mat.shape[1]
+        dtype = torch.uint8 if W == 8 else torch.int16
+        data = torch.randint(-128 if W == 8 else -(1 << 15), 128 if W == 8 else 1 << 15,
+                             (k, cols), dtype=torch.int32 if W == 16 else torch.int16,
+                             device=dev).to(dtype)
+        b = gf_bound(W, mat.shape[0], k, cols)
+        r = {"w": W, "shape": [mat.shape[0], k, cols], "what": what,
+             "ms": kernel_ms(lambda: GF.gf_matmul(mat, data)), "bound_ms": b[0], "bound_by": b[1],
+             "bound_xor_ms": b[2], "bound_int8_tc_ms": b[3]}
+        if plain_lib:
+            _, r["plain_ms"] = timed(lambda: GF.gf_matmul_plain(mat, data))
+            # torch._int_mm on the binary expansion's shape (not the same
+            # function: an int8 product with no parity or packing)
+            pad = -(-cols // 8) * 8
+            a8 = torch.randint(0, 2, (W * mat.shape[0], W * k), dtype=torch.int8, device=dev)
+            b8 = torch.randint(0, 2, (pad, W * k), dtype=torch.int8, device=dev).t()
+            r["library_ms"] = kernel_ms(lambda: torch._int_mm(a8, b8))
+            r["library_shape"] = [W * mat.shape[0], W * k, pad]
+        return r
+
+    k8 = BCAST_NODES - 2 * ((BCAST_NODES - 1) // 3)
+    c8 = RS.ReedSolomon(k8, BCAST_NODES - k8)
+    shard = -(-(BCAST_PAYLOAD + 4) // k8)
+    k16 = BIG_NODES - 2 * ((BIG_NODES - 1) // 3)
+    c16 = RS.ReedSolomon16(k16, BIG_NODES - k16)
+    dead = list(range(BIG_NODES - BIG_DEAD, BIG_NODES))
+    gf_rows = [
+        gf_row(16, c16.matrix[k16:], cols16, "epoch1024 parity", plain_lib=True),
+        gf_row(16, c16.decode_matrix([i for i in range(BIG_NODES) if i not in dead][:k16]), cols16,
+               "epoch1024 decode"),
+        gf_row(16, c16.matrix[dead], cols16 // (BIG_NODES - BIG_DEAD), "epoch1024 dead rows"),
+        gf_row(8, c8.matrix[k8:], shard, "broadcast1mb parity", plain_lib=True),
+        gf_row(8, c8.decode_matrix(list(range(k8, 2 * k8))), shard, "broadcast1mb decode"),
+    ]
+    out["gf_matmul"] = dict(gf_rows[3], w16=gf_rows[0], shapes=gf_rows)
+    for name in ("sha256", "merkle_level", "gf_matmul"):
+        log(f"rbc (e) {name}: " + json.dumps(out[name]))
+    log(f"rbc phase: {time.perf_counter() - t_phase} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1570,6 +2127,7 @@ def main() -> int:
     from hbbft_tpu_torch.crypto.curve import G1, G1_GEN, G2_GEN
     from hbbft_tpu_torch.harness.batching import BatchingBackend, DecObligation
     from hbbft_tpu_torch.harness.dkg import VectorizedDkg, _bump
+    from hbbft_tpu_torch.harness.rbc_probe import RbcProbe
     from hbbft_tpu_torch.harness.workload import DecryptionFlushWorkload
     from hbbft_tpu_torch.ops import limbs as LB
     from hbbft_tpu_torch.ops import packed_msm as PM
@@ -1584,7 +2142,8 @@ def main() -> int:
     # word for word
     compared = {"win_g1": "canonical", "win_g2": "canonical", "scan_g1": "canonical",
                 "ring_permute": "bytes", "fr_matmul": "words", "fr_planes": "bytes",
-                "cosim_hist": "bytes", "cosim_step": "bytes"}
+                "cosim_hist": "bytes", "cosim_step": "bytes", "sha256": "bytes",
+                "merkle_level": "bytes", "gf_matmul": "bytes"}
 
     def record_err(name: str, got, plain, what: str) -> None:
         torch.cuda.synchronize()
@@ -2065,7 +2624,8 @@ def main() -> int:
     def epochs64(what: str, per_epoch, **kw):
         """EPOCH_RUNS honest n = 64 epochs; each must commit every
         contribution with 4,096 shares verified, no fault and exactly
-        ``per_epoch`` kernel launches."""
+        ``per_epoch`` kernel launches (and the RBC kernels as the size
+        rules sent work to them)."""
         t0 = time.perf_counter()
         sim = VectorizedHoneyBadgerSim(EPOCH_NODES, random.Random(EPOCH_SEED), **kw)
         setup = time.perf_counter() - t0
@@ -2073,15 +2633,15 @@ def main() -> int:
         for e in range(EPOCH_RUNS):
             before = dict(cuda_ec.LAUNCHES)
             t0 = time.perf_counter()
-            res = sim.run_epoch(contribs64)
+            with RbcProbe(sim.ref.ops, sim) as probe:
+                res = sim.run_epoch(contribs64)
             walls.append(time.perf_counter() - t0)
             launches = {k: cuda_ec.LAUNCHES[k] - before[k] for k in before}
             if res.batch.contributions != contribs64 or res.shares_verified != EPOCH_NODES**2:
                 fail(f"{what} epoch {e}: batch or share count wrong ({res.shares_verified})")
             if not res.fault_log.is_empty():
                 fail(f"{what} epoch {e}: honest epoch logged faults {res.fault_log}")
-            if any(launches[k] != per_epoch.get(k, 0) for k in launches):
-                fail(f"{what} epoch {e} launched {launches}, not {per_epoch}")
+            check_launches(f"{what} epoch {e}", launches, probe.sent, per_epoch)
             outs.append(outcome(res))
         if sim.be.stats.fallback_groups:
             fail(f"{what}: an honest epoch fell back: {sim.be.stats}")
@@ -2109,11 +2669,12 @@ def main() -> int:
     big_dead = set(range(BIG_NODES - BIG_DEAD, BIG_NODES))
     contribs = {i: [b"real-%04d" % i] for i in range(BIG_NODES) if i not in big_dead}
 
-    def one_win_g1(what: str, before) -> None:
-        """An N = 1024 epoch launches win_g1 exactly once, and nothing else."""
+    def one_win_g1(what: str, before, probe) -> None:
+        """An N = 1024 epoch launches win_g1 exactly once, no other EC,
+        Fr or co-sim kernel, and the RBC kernels as the default size rules
+        send its calls to the card."""
         launches = {k: cuda_ec.LAUNCHES[k] - before[k] for k in before}
-        if launches != {k: int(k == "win_g1") for k in launches}:
-            fail(f"{what} N={BIG_NODES} epoch launched {launches}, not win_g1 once")
+        check_launches(f"{what} N={BIG_NODES} epoch", launches, probe.sent, {"win_g1": 1})
 
     cuda_ec.reset_launches()
     t0 = time.perf_counter()
@@ -2125,9 +2686,10 @@ def main() -> int:
     forged = {forger: {victim: T.DecryptionShare(G1_GEN * 0xBAD)}}
     before = dict(cuda_ec.LAUNCHES)
     t0 = time.perf_counter()
-    res = sim.run_epoch(contribs, dead=big_dead, forged_dec=forged)
+    with RbcProbe(sim.ref.ops, sim) as probe:
+        res = sim.run_epoch(contribs, dead=big_dead, forged_dec=forged)
     cold_s = time.perf_counter() - t0
-    one_win_g1("cold", before)
+    one_win_g1("cold", before, probe)
     faults = [(f.node_id, f.kind.name) for f in res.fault_log]
     if faults != [(forger, "INVALID_DECRYPTION_SHARE")]:
         fail(f"cold N={BIG_NODES} epoch: fault log {faults}, not the forger {forger}")
@@ -2139,9 +2701,11 @@ def main() -> int:
     sim.be.stats = type(sim.be.stats)()
     before = dict(cuda_ec.LAUNCHES)
     t0 = time.perf_counter()
-    res = sim.run_epoch(contribs, dead=big_dead)
+    with RbcProbe(sim.ref.ops, sim) as rbc_split:
+        res = sim.run_epoch(contribs, dead=big_dead)
     warm_s = time.perf_counter() - t0
-    one_win_g1("warm", before)
+    one_win_g1("warm", before, rbc_split)
+    epoch_cols = rbc_split.shapes["parity"][2]
     n_live = BIG_NODES - BIG_DEAD
     if res.batch.contributions != contribs or res.shares_verified != n_live**2:
         fail(f"warm N={BIG_NODES} epoch: batch or share count ({res.shares_verified}) wrong")
@@ -2152,6 +2716,9 @@ def main() -> int:
         f"no fallback, launches on the N={BIG_NODES} path (cold and warm) {big_launches}; "
         f"n={EPOCH_NODES} card path {epoch64_launches}, mesh path {mesh64_launches}; phases "
         + json.dumps(res.phases))
+    log(f"epoch N={BIG_NODES} warm RBC split (rbc {res.phases.get('rbc')} s): walls "
+        + json.dumps(rbc_split.walls) + ", calls " + json.dumps(rbc_split.calls)
+        + ", products (m, k, byte columns) " + json.dumps(rbc_split.shapes))
     del sim, res
 
     # win_g1 timed at the N = 1024 epoch's flush shape (the flush points
@@ -2323,7 +2890,8 @@ def main() -> int:
         sim.vote_for(v, Remove(leaving))
     first = {i: [b"c-%d" % i] for i in range(BIG_NODES)}
     t0 = time.perf_counter()
-    r1 = sim.run_epoch(first)
+    with RbcProbe(sim.ops, sim.sim) as probe1:
+        r1 = sim.run_epoch(first)
     era_switch_s = time.perf_counter() - t0
     if r1.change != Complete(Remove(leaving)) or sim.era != 1 or leaving in sim.validators:
         fail(f"churn: change {r1.change}, era {sim.era}, {len(sim.validators)} validators")
@@ -2344,15 +2912,18 @@ def main() -> int:
             fail(f"churn: node {i}'s public key share is not G2·share")
     second = {i: [b"d-%d" % i] for i in sim.validators}
     t0 = time.perf_counter()
-    r2 = sim.run_epoch(second)
+    with RbcProbe(sim.ops, sim.sim) as probe2:
+        r2 = sim.run_epoch(second)
     next_epoch_s = time.perf_counter() - t0
     churn_launches = dict(cuda_ec.LAUNCHES)
     if r2.batch.contributions != second or r2.era != 1 or not r2.fault_log.is_empty():
         fail(f"churn: the next epoch committed {len(r2.batch.contributions)} contributions")
     if (churn_launches["fr_matmul"] < 1
             or churn_launches["fr_planes"] != 2 * churn_launches["fr_matmul"]
-            or any(v for k, v in churn_launches.items() if k not in ("fr_matmul", "fr_planes"))):
+            or any(v for k, v in churn_launches.items()
+                   if k not in ("fr_matmul", "fr_planes") + cuda_ec.RBC_KERNELS)):
         fail(f"churn: launches {churn_launches}, not fr_matmul with its two fr_planes alone")
+    check_rbc("churn", churn_launches, {k: v + probe2.sent[k] for k, v in probe1.sent.items()})
     dealing_s = sim.last_switch_phases["dkg_dealing"]
     deal_macs = N_CH * ((2 * T_CH + 1) * TP1 * TP1 + TP1 * TP1 * N_CH + TP1 * N_CH + TP1
                         + 2 * TP1 * TP1)
@@ -2385,15 +2956,19 @@ def main() -> int:
         if NT.g1_wire(g1_from_limbs(host[i])) != NT.g1_mul(wires[i], scalars[i]):
             fail(f"scalar_mul_scan row {i} is not k·P")
     sbits = torch.from_numpy(host_bits).to(dev)
+    _, scan_full_ms = timed(lambda: cuda_ec.scan_g1(pts, sbits))
+    pts, sbits = pts[:SCAN_TIME_K], sbits[:SCAN_TIME_K]
     got, scan_ms = timed(lambda: cuda_ec.scan_g1(pts, sbits))
     plain, scan_plain_ms = timed(lambda: cuda_ec.scan_plain(pts, sbits))
-    record_err("scan_g1", got, plain, f"at K={K_TIME}")
+    record_err("scan_g1", got, plain, f"at K={SCAN_TIME_K}")
     del plain, got
-    scan_b = scan_bound(host_bits)
+    scan_b = scan_bound(host_bits[:SCAN_TIME_K])
+    scan_full_b = scan_bound(host_bits)
     log(
-        f"scan_g1 K={K_TIME} nbits={SCAN_BITS}: kernel {scan_ms} ms, plain "
+        f"scan_g1 K={SCAN_TIME_K} nbits={SCAN_BITS}: kernel {scan_ms} ms, plain "
         f"{scan_plain_ms} ms, bound {scan_b[0]} ms ({scan_b[1]}), equal at canonical values; "
-        f"entry point checked on 200 rows against native"
+        f"K={K_TIME}: kernel {scan_full_ms} ms, bound {scan_full_b[0]} ms; entry point "
+        f"checked on 200 rows against native"
     )
 
     # -- 5. the sequential engines ----------------------------------------
@@ -2406,6 +2981,9 @@ def main() -> int:
 
     # (e) the n = 64 real-BLS epoch under a divergent view-class schedule
     div_launches = divergent_phase()
+
+    # -- 7. the reliable-broadcast plane and the mesh's sharded programs ----
+    rbc = rbc_phase(record_err, timed, device_timed, epoch_cols, mesh)
 
     # -- 7. report ------------------------------------------------------
     by_path = {
@@ -2431,6 +3009,17 @@ def main() -> int:
     }
     by_path["win_g1"]["epoch64_hw"] = cosim["epoch64_hw"]["win_g1"]
     by_path["ring_permute"]["cosim100k_mesh"] = cosim["cosim100k_mesh"]["ring_permute"]
+    for name in cuda_ec.RBC_KERNELS:
+        by_path[name] = {
+            "rbc_check": rbc["rbc_check"][name], "broadcast1mb": rbc["broadcast1mb"][name],
+            "epoch1024": big_launches[name], "epoch64": epoch64_launches[name],
+            "epoch64_mesh": mesh64_launches[name], "churn1024": churn_launches[name],
+            **{path: n[name] for path, n in seq_launches.items()},
+            "seq_sim": sim5e["launches"][name], "epoch64_div": div_launches[name],
+        }
+    # the sharded programs on the 4-shard mesh
+    for name in ("win_g1", "win_g2", "scan_g1", "ring_permute", "sha256"):
+        by_path[name]["mesh_programs"] = sum(n.get(name, 0) for n in rbc["mesh_programs"].values())
 
     def row(name, replaces, launches, ms, plain_ms, bound, library_ms=None, source=None):
         # library_ms None: no PyTorch call computes an EC scalar multiplication
@@ -2467,8 +3056,14 @@ def main() -> int:
                 # the DKG's whole fused MSM, beside its first G2_PLAIN_ROWS rows
                 dkg_k=entries, dkg_ms=dkg_g2_ms, dkg_bound_ms=dkg_g2_bound[0],
             ),
-            row("scan_g1", "hbbft_tpu/ops/pallas_ec.py:291", scan_launches["scan_g1"],
-                scan_ms, scan_plain_ms, scan_b),
+            dict(
+                row("scan_g1", "hbbft_tpu/ops/pallas_ec.py:291", scan_launches["scan_g1"],
+                    scan_ms, scan_plain_ms, scan_b),
+                # ms and plain_ms at SCAN_TIME_K rows; the kernel alone at
+                # the entry point's K_TIME
+                shape=[SCAN_TIME_K, SCAN_BITS], k_time=K_TIME, k_time_ms=scan_full_ms,
+                k_time_bound_ms=scan_full_b[0],
+            ),
             row("ring_permute", "hbbft_tpu/ops/pallas_ec.py:882",
                 mesh64_launches["ring_permute"], ring_ms, ring_plain_ms, ring_b, ring_lib_ms),
             dict(
@@ -2520,6 +3115,44 @@ def main() -> int:
                 replaces_kind="the zone histogram of an XLA program (packed_cosim_step_fn's "
                               "_body), not a Pallas kernel",
                 shape=[COSIM_TIME_N, COSIM_TIME_Z], floor_ms=cosim["floor_ms"],
+            ),
+            dict(
+                # library_ms None: no PyTorch call hashes; ms and plain_ms at
+                # 1,000 messages of 47,672 B (the 1 MB broadcast's leaf
+                # message); launches: the forced 1 MB broadcast's
+                row("sha256", "hbbft_tpu/ops/sha256_jax.py:90", rbc["broadcast1mb"]["sha256"],
+                    rbc["sha256"]["ms"], rbc["sha256"]["plain_ms"],
+                    (rbc["sha256"]["bound_ms"], rbc["sha256"]["bound_by"])),
+                replaces_kind="an XLA program (_compress / sha256_device), not a Pallas kernel",
+                shape=[rbc["sha256"]["batch"], rbc["sha256"]["bytes"]],
+                shapes=rbc["sha256"]["shapes"],
+            ),
+            dict(
+                # library_ms None: no PyTorch call hashes; one level of 512
+                # parents (the first of a 1,024-leaf tree)
+                row("merkle_level", "hbbft_tpu/ops/sha256_jax.py:147",
+                    rbc["broadcast1mb"]["merkle_level"], rbc["merkle_level"]["ms"],
+                    rbc["merkle_level"]["plain_ms"],
+                    (rbc["merkle_level"]["bound_ms"], rbc["merkle_level"]["bound_by"]),
+                    source="sha256"),
+                replaces_kind="a level of an XLA program's Merkle tree (merkle_levels_device), "
+                              "not a Pallas kernel",
+                shape=[rbc["merkle_level"]["parents"]], shapes=rbc["merkle_level"]["shapes"],
+            ),
+            dict(
+                # ms at the 1 MB broadcast's W = 8 parity product; w16 the
+                # N = 1024 epoch's W = 16 parity product; library_ms is
+                # torch._int_mm on the binary expansion's shape, NOT the
+                # same function (an int8 product, no parity or packing)
+                row("gf_matmul", "hbbft_tpu/ops/gf256_jax.py:78", rbc["broadcast1mb"]["gf_matmul"],
+                    rbc["gf_matmul"]["ms"], rbc["gf_matmul"]["plain_ms"],
+                    (rbc["gf_matmul"]["bound_ms"], rbc["gf_matmul"]["bound_by"]),
+                    rbc["gf_matmul"]["library_ms"]),
+                replaces_kind="XLA programs (_bitsliced_matmul :78, _bitsliced_matmul16 :219), "
+                              "not Pallas kernels",
+                library_is="torch._int_mm on the binary expansion's shape, not the same function",
+                shape=rbc["gf_matmul"]["shape"], library_shape=rbc["gf_matmul"]["library_shape"],
+                w16=rbc["gf_matmul"]["w16"], shapes=rbc["gf_matmul"]["shapes"],
             ),
         ]
     }

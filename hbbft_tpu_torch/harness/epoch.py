@@ -11,8 +11,9 @@ crypto batched:
 - **Reliable broadcast**: all uncorrupted instances in one wave — one
   parity matmul, one cached decode matrix, one reconstruction matmul,
   Merkle commitments checked against an independent rebuild.  The RS
-  codecs, SHA-256 and Merkle trees run on the native host
-  (``CpuBackend``'s broadcast plane, inherited by ``CudaBackend``).
+  products, SHA-256 and Merkle trees run where the backend's size rules
+  send them: ``CudaBackend``'s ``gf_matmul``, ``sha256`` and
+  ``merkle_level`` kernels, or the native host (``CpuBackend``).
 - **Binary agreement** (``VectorizedAgreement``): per-instance state
   uniform across correct nodes, per-node estimates ([P, N] array), the
   reference's coin schedule; every real threshold coin pending in a
@@ -69,6 +70,7 @@ from ..crypto.curve import G2_GEN
 from ..crypto.hashing import DST_SIG, hash_to_g1
 from ..crypto.merkle import MerkleTree as _PyMerkleTree
 from ..crypto.pairing import pairing_check
+from ..ops import gf256 as GF
 from ..protocols.broadcast import frame_into_shards, unframe_shards
 from ..protocols.common_coin import make_nonce
 from ..protocols.honey_badger import Batch
@@ -1265,6 +1267,10 @@ class VectorizedHoneyBadgerSim:
     account ``EpochResult.virtual`` (incompatible with ordered reveals).
     """
 
+    # the independent tree the RBC commitments are checked against; an
+    # attribute, so that ``harness.rbc_probe`` can time it on one instance
+    _reroot = _PyMerkleTree
+
     def __init__(
         self,
         n: int,
@@ -2088,12 +2094,22 @@ class VectorizedHoneyBadgerSim:
     # -- reliable broadcast (batched across uncorrupted instances) ---------
 
     def _codec_mat(self) -> np.ndarray:
-        return self.codec.matrix
+        mat = getattr(self.codec, "matrix", None)
+        if mat is None:  # a device codec wraps the host matrix
+            mat = self.codec._host.matrix
+        return mat
 
     def _codec_matmul(self, rows: np.ndarray, byte_mat: np.ndarray) -> np.ndarray:
-        """Constant coding matrix × byte matrix in the codec's field, on
-        the host (the native GF(2^8)/GF(2^16) products).  The reference
-        also has a device branch (``ops/gf256_jax.py``), not ported."""
+        """Constant coding matrix × byte matrix in the codec's field,
+        dispatched to the codec's engine: the device codecs' products
+        (``gf16_matmul_device`` / ``gf_matmul_device``, each by the
+        backend's size rule), the native host product otherwise."""
+        if isinstance(self.codec, GF.ReedSolomonDevice16):
+            syms = np.ascontiguousarray(byte_mat).view("<u2")
+            out = self.codec.matmul(rows, syms)
+            return np.ascontiguousarray(out.astype("<u2")).view(np.uint8)
+        if isinstance(self.codec, GF.ReedSolomonDevice):
+            return self.codec.matmul(rows, byte_mat)
         if getattr(self.codec, "symbol", 1) == 2:
             syms = np.ascontiguousarray(byte_mat).view("<u2")
             out = RS._matmul16(rows, syms)
@@ -2195,7 +2211,7 @@ class VectorizedHoneyBadgerSim:
                 # Python objects.  Any mismatch (backend bug, exotic
                 # ops codec) replays the exact per-instance path so
                 # fault attribution matches the sequential semantics.
-                if _PyMerkleTree(shards).levels != mtree.levels:
+                if self._reroot(shards).levels != mtree.levels:
                     value = self._rbc(pid, payloads[pid], dead, None, faults)
                     if value is not None:
                         out[pid] = value

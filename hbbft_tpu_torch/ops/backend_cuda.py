@@ -26,11 +26,22 @@ The mesh is an argument only: no environment variable makes one, and a
 mesh failure raises like any device failure.
 
 The reliable-broadcast plane (``sha256_many``, ``merkle_tree``,
-``rs_codec``) is inherited from ``CpuBackend`` and runs on the native
-host, as on the reference's CPU backend: its TPU version is a jitted
-XLA program (``ops/gf256_jax.py``, ``ops/sha256_jax.py``), not a Pallas
-kernel, and its port to the card is still to come.  It is the host
-path by design, not a fallback: nothing here tries the card first.
+``rs_codec``) is the port of ``backend_tpu.py:184-222``: batched SHA-256
+and Merkle levels through the ``sha256`` and ``merkle_level`` kernels
+(``ops/sha256.py``), Reed–Solomon products through ``gf_matmul``
+(``ops/gf256.py``'s device codecs, GF(2^16) past 256 shards).  The
+reference sends it to the device only where the native host library is
+missing; here size rules measured on the card take that place
+(``scripts/torch_rbc_band.py``), each a pure predicate of the call's
+sizes: a uniform batch of at least ``SHA_DEVICE_MIN_ITEMS`` messages (never
+below the reference's 8) and at most ``SHA_DEVICE_MAX_BYTES`` bytes in all
+(:meth:`CudaBackend.sha_on_device`), a tree of at least
+``MERKLE_DEVICE_MIN_LEAVES`` uniform leaves of at most
+``MERKLE_DEVICE_MAX_BYTES`` bytes in all (:meth:`tree_on_device`), and a
+codec product (the device codec asks per product, :meth:`gf_rule`)
+of at least ``GF8_DEVICE_MIN`` / ``GF16_DEVICE_MIN`` symbol products
+m·k·columns.  Below them the native host runs, as on ``CpuBackend``; a
+codec without parity is the host codec.
 """
 
 from __future__ import annotations
@@ -42,9 +53,23 @@ import torch
 from ..crypto import threshold as T
 from ..crypto.backend import CpuBackend, EagerFinalizer
 from ..crypto.curve import G1, G2, G2_GEN
+from ..crypto.merkle import MerkleTree
 from ..crypto.pairing import pairing_check
 from ..device import DeviceLike, resolve_device
-from . import packed_msm
+from . import gf256, packed_msm
+from . import sha256 as SH
+
+# the reference's _MIN_DEVICE_BATCH (backend_tpu.py:40): the floor of the
+# item and leaf rules
+RBC_MIN_ITEMS = 8
+
+
+class _DeviceMerkleTree(MerkleTree):
+    """MerkleTree whose levels were hashed on the device (same layout)."""
+
+    def __init__(self, values: List[bytes], levels: List[List[bytes]]):
+        self.values = list(values)
+        self.levels = levels
 
 
 class CudaBackend(CpuBackend):
@@ -60,6 +85,32 @@ class CudaBackend(CpuBackend):
     # and win from 4,096 (scripts/torch_g1_band.py; numbers in PERF.md).
     G1_DEVICE_MIN = 1 << 12
     G1_PRODUCT_DEVICE_MIN = 1 << 12
+
+    # The reliable-broadcast plane's rules (the module docstring): the
+    # values that scripts/torch_rbc_band.py printed, the least total time
+    # over its grid (ties to the host), on an H100 80GB HBM3 at 700 W
+    # (PERF.md §5; card / host ms).  A batch of messages goes to the card
+    # from 256 messages up to 4 MiB in all (1,024 × 11 B 0.47 / 0.58;
+    # 4,096 × 1,024 B 5.57 / 9.18; past it the host's copies and padding
+    # cost the card more than the hashing: 4,096 × 4,096 B 41.6 / 22.7,
+    # 1,024 × 47,672 B 109.5 / 99.5); a tree from 1,024 leaves up to 1 MiB
+    # (1,024 × 2 B 1.23 / 1.53; 1,024 × 47,663 B 95.7 / 82.9); a GF(2^8)
+    # product from 2^21 symbol products (the 1 MB broadcast's parity, 44 M:
+    # 0.92 / 3.51); a GF(2^16) product from 2^14 (the card at every shape
+    # measured: the N = 1024 epoch's parity, 227 M, 1.10 / 163.1; its dead
+    # rows, 17,100, 0.36 / 2.05).
+    SHA_DEVICE_MIN_ITEMS = 1 << 8
+    SHA_DEVICE_MAX_BYTES = 1 << 22
+    MERKLE_DEVICE_MIN_LEAVES = 1 << 10
+    MERKLE_DEVICE_MAX_BYTES = 1 << 20
+    GF8_DEVICE_MIN = 1 << 21
+    GF16_DEVICE_MIN = 1 << 14
+    # every rule opened as far as it goes (chip_smoke.py's forced backends)
+    RBC_FLOOR = dict(
+        SHA_DEVICE_MIN_ITEMS=RBC_MIN_ITEMS, SHA_DEVICE_MAX_BYTES=1 << 62,
+        MERKLE_DEVICE_MIN_LEAVES=RBC_MIN_ITEMS, MERKLE_DEVICE_MAX_BYTES=1 << 62,
+        GF8_DEVICE_MIN=1, GF16_DEVICE_MIN=1,
+    )
 
     def __init__(self, device: DeviceLike = None, mesh=None):
         self.device = resolve_device(device)
@@ -80,6 +131,49 @@ class CudaBackend(CpuBackend):
     def _on_host(k: int, minimum: int) -> bool:
         """Empty, or below the size rule: native host Pippenger."""
         return k == 0 or k < minimum
+
+    # -- hashing / merkle / erasure coding (the broadcast plane) -----------
+
+    @staticmethod
+    def _uniform(items: List[bytes], min_items: int) -> bool:
+        """At least ``min_items`` (and 8) items, all of one length."""
+        return len(items) >= max(min_items, RBC_MIN_ITEMS) and len({len(i) for i in items}) == 1
+
+    def sha_on_device(self, items: Sequence[bytes]) -> bool:
+        """Whether the size rules send this batch of messages to the card."""
+        return (self._uniform(items, self.SHA_DEVICE_MIN_ITEMS)
+                and len(items) * len(items[0]) <= self.SHA_DEVICE_MAX_BYTES)
+
+    def tree_on_device(self, values: Sequence[bytes]) -> bool:
+        """Whether the size rules send the tree of ``values`` to the card."""
+        return (self._uniform(values, self.MERKLE_DEVICE_MIN_LEAVES)
+                and len(values) * len(values[0]) <= self.MERKLE_DEVICE_MAX_BYTES)
+
+    def gf_rule(self, minimum: str) -> gf256.Rule:
+        """The device codecs' rule: a product of m·k·columns symbol
+        products at or above the class constant named ``minimum``."""
+        return lambda m, k, columns: m * k * columns >= getattr(self, minimum)
+
+    def sha256_many(self, items: Sequence[bytes]) -> List[bytes]:
+        items = list(items)
+        if not self.sha_on_device(items):
+            return super().sha256_many(items)
+        return SH.sha256_many(items, self.device)
+
+    def merkle_tree(self, values: List[bytes]) -> MerkleTree:
+        vals = list(values)
+        if not self.tree_on_device(vals):
+            return MerkleTree(vals)
+        return _DeviceMerkleTree(vals, SH.merkle_levels_device(vals, self.device))
+
+    def rs_codec(self, data_shards: int, parity_shards: int):
+        if parity_shards == 0:
+            return super().rs_codec(data_shards, parity_shards)
+        if data_shards + parity_shards > 256:
+            return gf256.ReedSolomonDevice16(data_shards, parity_shards, self.device,
+                                             self.gf_rule("GF16_DEVICE_MIN"))
+        return gf256.ReedSolomonDevice(data_shards, parity_shards, self.device,
+                                       self.gf_rule("GF8_DEVICE_MIN"))
 
     # -- group MSMs --------------------------------------------------------
 

@@ -1,8 +1,11 @@
 """A mesh of shards for the flush's G1 MSMs and the packed co-sim's
 step, and the ring all-reduce.
 
-The port of the mesh-sharded product flush and of the packed co-sim
-step (``packed_cosim_step_fn``) of ``hbbft_tpu/parallel/mesh.py``.  The
+The port of the mesh-sharded product flush, of the sharded MSMs and
+epoch crypto step (``sharded_msm_fn``, ``sharded_windowed_msm_fn``,
+``sharded_windowed_g1_msm``, ``sharded_g1_msm``,
+``sharded_epoch_crypto_fn``) and of the packed co-sim step
+(``packed_cosim_step_fn``) of ``hbbft_tpu/parallel/mesh.py``.  The
 reference shards the point axis of a product flush over a
 ``jax.sharding.Mesh`` under ``shard_map``: each shard unpacks its block
 of wires, runs the windowed kernel, builds its per-group trees, and the
@@ -37,7 +40,8 @@ from ..device import DeviceLike, resolve_device
 from ..ops import cosim_step as CS
 from ..ops import cuda_ec
 from ..ops import packed_msm as PM
-from ..ops.ec import g1_kernel
+from ..ops import sha256 as SH
+from ..ops.ec import g1_kernel, g2_kernel
 
 
 class Mesh:
@@ -187,6 +191,168 @@ def sharded_packed_msm(mesh: Mesh, wires: np.ndarray, sc: np.ndarray) -> torch.T
     partials = mesh.join(partials)
     home = mesh.devices[0]
     return kern.tree_sum(torch.stack([p.to(home) for p in partials]))
+
+
+# ---------------------------------------------------------------------------
+# Sharded MSMs and the epoch's crypto step (reference :89-141, :378-449)
+# ---------------------------------------------------------------------------
+# The reference shards the rows of an MSM over the mesh under
+# ``shard_map``, tree-sums each shard's products and all-gathers the
+# [3, L] partials into one more tree.  Here each shard runs its rows
+# through the port's kernels on its stream and tree-sums them; the
+# partials meet in ``_ring_reduce`` with the complete add, which leaves
+# the same point on every shard.
+
+
+def _shard_rows(x, mesh: Mesh, pad: Callable[[int, torch.device], torch.Tensor]) -> List[torch.Tensor]:
+    """Rows of ``x`` (a tensor or array) cut into ``mesh.size`` equal
+    blocks, ⌈K/n⌉ rows each, padded at the end by ``pad(rows, device)``,
+    block j on shard j's device (made on its stream)."""
+    t = torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
+    n = mesh.size
+    m = -(-t.shape[0] // n)
+    out = []
+    for j, d in enumerate(mesh.devices):
+        with mesh.on(j):
+            blk = t[j * m : (j + 1) * m].to(d)
+            if blk.shape[0] < m:
+                blk = torch.cat([blk, pad(m - blk.shape[0], d).to(blk.dtype)])
+            out.append(blk.contiguous())
+    return out
+
+
+def _zeros_like_rows(x):
+    width = tuple(x.shape[1:])
+    return lambda rows, d: torch.zeros((rows,) + width, dtype=torch.int32, device=d)
+
+
+def _bits_to_digits(bits: torch.Tensor) -> torch.Tensor:
+    """[K, nbits] msb-first bits → [K, ⌈nbits/4⌉] msb-first 4-bit window
+    digits on the same device (``cuda_ec.bits_to_digits`` in torch)."""
+    K, nbits = bits.shape
+    nwin = -(-nbits // 4)
+    padded = torch.nn.functional.pad(bits.to(torch.int32), (nwin * 4 - nbits, 0))
+    d = padded.reshape(K, nwin, 4)
+    return ((d[..., 0] << 3) | (d[..., 1] << 2) | (d[..., 2] << 1) | d[..., 3]).contiguous()
+
+
+def _sharded_sum(mesh: Mesh, g2: bool, pts, aux, per_shard) -> torch.Tensor:
+    """Σ of ``per_shard(points, aux)`` products over the rows of ``pts``
+    and ``aux`` cut over the mesh (identity points, zero aux as padding),
+    each shard's tree on its stream, the partials ring-reduced; returns
+    shard 0's sum."""
+    kern = g2_kernel() if g2 else g1_kernel()
+    pt_blocks = _shard_rows(pts, mesh, lambda r, d: kern.identity((r,), d))
+    aux_blocks = _shard_rows(aux, mesh, _zeros_like_rows(aux))
+    mesh.fork()
+    local = []
+    for j in range(mesh.size):
+        with mesh.on(j):
+            local.append(kern.tree_sum(per_shard(pt_blocks[j], aux_blocks[j])))
+    return mesh.join(_ring_reduce(local, kern.add, mesh))[0]
+
+
+def _bit_serial(g2: bool):
+    """Per-shard k·P from msb-first bits: ``scan_g1`` on G1; on G2, which
+    has no bit-serial kernel, ``win_g2`` on the same scalars' digits."""
+    if g2:
+        return lambda pts, bits: cuda_ec.win_g2(pts, _bits_to_digits(bits))
+    return lambda pts, bits: cuda_ec.scan_g1(pts, bits.to(torch.int32).contiguous())
+
+
+def sharded_msm_fn(mesh: Mesh, g2: bool = False):
+    """The sharded MSM (reference ``:89``): ``run(pts, bits)`` over the
+    port's kernel layouts — ``pts`` [K, 3, 38] int32 G1 limbs (or
+    [K, 3, 2, 38] on G2), ``bits`` [K, nbits] int32 msb-first scalar bits,
+    tensors on any device or arrays — returns Σ kᵢ·Pᵢ as [3, 38] (or
+    [3, 2, 38]) limbs on shard 0's device.  Each shard's rows go through
+    ``scan_g1`` (G2: ``win_g2`` on the scalars' 4-bit digits), a tree,
+    and the ring."""
+    per_shard = _bit_serial(g2)
+
+    def run(pts, bits) -> torch.Tensor:
+        return _sharded_sum(mesh, g2, pts, bits, per_shard)
+
+    return run
+
+
+def sharded_windowed_msm_fn(mesh: Mesh, g2: bool = False):
+    """The sharded 4-bit windowed MSM (reference ``:114``):
+    ``run(pts, digits)`` over the port's kernel layouts — ``pts`` as for
+    :func:`sharded_msm_fn`, ``digits`` [K, nwin] int32 msb-first 4-bit
+    windows (the reference's tile-transposed layout has no counterpart) —
+    returns the sum on shard 0's device.  Each shard's rows go through
+    ``win_g1`` (or ``win_g2``), a tree, and the ring."""
+    win = cuda_ec.win_g2 if g2 else cuda_ec.win_g1
+
+    def run(pts, digits) -> torch.Tensor:
+        return _sharded_sum(mesh, g2, pts, digits, lambda p, d: win(p, d.to(torch.int32)))
+
+    return run
+
+
+def sharded_windowed_g1_msm(points: Sequence, scalars: Sequence[int], mesh: Optional[Mesh] = None,
+                            nbits: int = 255):
+    """Host-facing sharded windowed MSM over the port's G1 points
+    (reference ``:378``); the mesh defaults to every card."""
+    from ..crypto.curve import G1
+    from ..ops import limbs as LB
+    from ..ops.ec import g1_from_limbs, g1_to_limbs
+
+    if not points:
+        return G1.infinity()
+    mesh = mesh or make_mesh()
+    digits = cuda_ec.bits_to_digits(LB.scalars_to_bits(list(scalars), nbits))
+    return g1_from_limbs(sharded_windowed_msm_fn(mesh)(g1_to_limbs(list(points)), digits))
+
+
+def sharded_g1_msm(points: Sequence, scalars: Sequence[int], mesh: Optional[Mesh] = None):
+    """Host-facing sharded bit-serial MSM over the port's G1 points
+    (reference ``:437``); the mesh defaults to every card."""
+    from ..crypto.curve import G1
+    from ..ops import limbs as LB
+    from ..ops.ec import g1_from_limbs, g1_to_limbs
+
+    if not points:
+        return G1.infinity()
+    mesh = mesh or make_mesh()
+    bits = LB.scalars_to_bits(list(scalars))
+    return g1_from_limbs(sharded_msm_fn(mesh)(g1_to_limbs(list(points)), bits))
+
+
+def sharded_epoch_crypto_fn(mesh: Mesh):
+    """One epoch's batched crypto sharded over the validator axis
+    (reference ``:401``): ``step(share_pts, share_bits, pk_pts,
+    digests_in)`` over the port's kernel layouts — ``share_pts`` [k, 3, 38]
+    G1 shares, ``share_bits`` [k, nbits] msb-first RLC coefficient bits,
+    ``pk_pts`` [k, 3, 2, 38] G2 key shares, ``digests_in`` [k, 16] one
+    padded SHA-256 block a validator lane (int32 or uint32 words) —
+    returns ``(agg_share [3, 38], agg_pk [3, 2, 38], digests [k, 8])`` on
+    shard 0's device: the two aggregates of the batched check
+    e(Σrᵢσᵢ, P₂)·e(−H, Σrᵢpkᵢ) (``scan_g1``; ``win_g2`` on the digits) and
+    the lanes' digests (the ``sha256`` kernel on each shard's
+    [k/n, 1, 16] blocks)."""
+    g1_msm, g2_msm = sharded_msm_fn(mesh), sharded_msm_fn(mesh, g2=True)
+
+    def step(share_pts, share_bits, pk_pts, digests_in):
+        agg1 = g1_msm(share_pts, share_bits)
+        agg2 = g2_msm(pk_pts, share_bits)
+        if not isinstance(digests_in, torch.Tensor):
+            digests_in = torch.from_numpy(
+                np.ascontiguousarray(digests_in, dtype=np.uint32).view(np.int32))
+        words = SH._words(digests_in, "sharded_epoch_crypto_fn")
+        k = words.shape[0]
+        lanes = _shard_rows(words, mesh, _zeros_like_rows(words))
+        mesh.fork()
+        digests = []
+        for j in range(mesh.size):
+            with mesh.on(j):
+                digests.append(SH.sha256(lanes[j][:, None, :]))
+        home = mesh.devices[0]
+        digests = torch.cat([t.to(home) for t in mesh.join(digests)])[:k]
+        return agg1, agg2, digests
+
+    return step
 
 
 # ---------------------------------------------------------------------------

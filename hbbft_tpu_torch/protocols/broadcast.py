@@ -15,7 +15,8 @@ Value → Echo → Ready protocol:
 
 The RS codec and the Merkle trees come from ``netinfo.ops``
 (``rs_codec``, ``merkle_tree``): the host codecs of
-``crypto.backend.CpuBackend``, which ``CudaBackend`` inherits.
+``crypto.backend.CpuBackend``, or ``CudaBackend``'s device codecs and
+trees where its size rules send the work to the card.
 ``frame_into_shards`` / ``unframe_shards`` are shared with the
 vectorized epoch.
 """

@@ -19,8 +19,13 @@ It prints a line a run, then one JSON object with the setup and cold
 walls, the median s/epoch of the warm and pipelined epochs, the median
 of each phase wall (``EpochResult.phases``: propose, rbc, agreement,
 decrypt with its ``dec_*`` stages and the flush's ``flush_*`` stages,
-assembly, commit_latency), the n = 64 epochs/s and the launch counts;
-the JSON also goes to ``chiprun_out/torch_epoch_walls.json``.  The last
+assembly, commit_latency), the warm epochs' RBC wall split by work
+(``harness.rbc_probe.RbcProbe``: the parity, decode and dead-row
+products, the backend's trees, the independent re-root; medians, with
+each product's shape and the RBC kernel launches the size rules send to
+the card), the n = 64 epochs/s and the
+launch counts; the JSON also goes to
+``chiprun_out/torch_epoch_walls.json``.  The last
 line is the card's name and power limit.  Run from the repo root on a
 CUDA host: ``python3 scripts/torch_epoch_walls.py`` (``--nodes`` and
 ``--dead`` shrink the large sequence, ``--skip-large`` leaves it out).
@@ -61,10 +66,12 @@ def main() -> int:
         return 1
     from hbbft_tpu_torch import native as NT
     from hbbft_tpu_torch.harness.epoch import VectorizedHoneyBadgerSim
+    from hbbft_tpu_torch.harness.rbc_probe import RbcProbe
     from hbbft_tpu_torch.ops import cuda_ec, kernels
 
     NT.build()
-    kernels.build("win_g1")
+    for name in ("win_g1", "sha256", "gf_matmul"):
+        kernels.build(name)
     out = {"root": ROOT}
 
     def check(res, contribs, n_live, what):
@@ -89,17 +96,25 @@ def main() -> int:
         out["cold_phases"] = res.phases
         check(res, contribs, n_live, "cold epoch")
         print(f"N={n}: cold epoch {out['cold_s']} s " + json.dumps(res.phases), flush=True)
-        walls, rows = [], []
+        walls, rows, splits = [], [], []
         for e in range(args.epochs):
             t0 = time.perf_counter()
-            res = sim.run_epoch(contribs, dead=dead)
+            with RbcProbe(sim.ref.ops, sim) as split:
+                res = sim.run_epoch(contribs, dead=dead)
             walls.append(time.perf_counter() - t0)
             rows.append(res.phases)
+            splits.append(split.walls)
             check(res, contribs, n_live, f"warm epoch {e}")
             print(f"N={n}: warm epoch {walls[-1]} s " + json.dumps(res.phases), flush=True)
+            print(f"N={n}: warm epoch RBC split " + json.dumps(split.walls) + " calls "
+                  + json.dumps(split.calls), flush=True)
         out["warm_walls"] = walls
         out["warm_s_per_epoch"] = statistics.median(walls)
         out["warm_phases"] = _phase_medians(rows)
+        out["warm_rbc_split"] = _phase_medians(splits)
+        out["rbc_calls"] = split.calls
+        out["rbc_products"] = split.shapes
+        out["rbc_sent_per_epoch"] = split.sent
         t0 = time.perf_counter()
         ress = sim.run_epochs([contribs] * args.epochs, dead=dead)
         out["pipelined_s_per_epoch"] = (time.perf_counter() - t0) / args.epochs

@@ -28,7 +28,12 @@ one launch of ``cosim_step`` and none of ``cosim_hist``, with the 4-shard
 mesh step equal to the one launch; so must the tail shapes n = 0, 1, 15,
 16, 17, 4,097 at Z = 1, 5, 257 (the mesh step called twice, reusing its
 scratch) and column views that are not 16-byte aligned; and the packed
-co-sim on the card must equal its CPU run.
+co-sim on the card must equal its CPU run.  ``sha256``, ``merkle_level``
+and ``gf_matmul`` (W = 8 and 16) must equal their plain versions byte for
+byte and ``hashlib`` / ``MerkleTree`` / the native products, with one
+launch a call (``merkle_levels_device``: one ``sha256`` and one
+``merkle_level`` a level), and a forced backend's broadcast must deliver
+the host run's messages.
 """
 
 import random
@@ -530,3 +535,101 @@ def test_cosim_step_on_misaligned_views_matches_plain(dev, Z):
     assert torch.equal(a, CS.cosim_hist_plain(t["dst_on"], t["zone"], Z))
     for g, m, w in zip(list(got) + [ck], list(mesh_form) + [cm], list(want) + [cp]):
         assert torch.equal(g, w) and torch.equal(m, w)
+
+
+# ---------------------------------------------------------------------------
+# The reliable-broadcast plane: sha256, merkle_level, gf_matmul
+# ---------------------------------------------------------------------------
+
+
+def _smoke():
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _equal_bytes(got, plain):
+    torch.cuda.synchronize()
+    assert got.shape == plain.shape and torch.equal(got, plain)
+
+
+def test_sha256_matches_plain_and_hashlib(dev):
+    import hashlib
+
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops import sha256 as SH
+
+    gen = np.random.default_rng(1)
+    for length in (0, 1, 55, 56, 63, 64, 119, 120, 1000):
+        msgs = [gen.integers(0, 256, size=length, dtype=np.uint8).tobytes() for _ in range(130)]
+        blocks = torch.from_numpy(SH.pad_messages(msgs).view(np.int32)).to(dev)
+        before = cuda_ec.LAUNCHES["sha256"]
+        got = SH.sha256(blocks)
+        assert cuda_ec.LAUNCHES["sha256"] == before + 1
+        _equal_bytes(got, SH.sha256_plain(blocks))
+        assert SH.digests_to_bytes(got) == [hashlib.sha256(m).digest() for m in msgs]
+        assert SH.digests_to_bytes(SH.sha256(blocks[1:])) == SH.digests_to_bytes(got)[1:]
+
+
+def test_merkle_levels_on_the_card_match_tree(dev):
+    from hbbft_tpu_torch.crypto.merkle import MerkleTree
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops import sha256 as SH
+
+    gen = np.random.default_rng(2)
+    for n in (1, 2, 3, 11, 64, 1000):
+        vals = [gen.integers(0, 256, size=33, dtype=np.uint8).tobytes() for _ in range(n)]
+        cuda_ec.reset_launches()
+        levels = SH.merkle_levels_device(vals, dev)
+        assert levels == MerkleTree(vals).levels
+        assert cuda_ec.LAUNCHES["sha256"] == 1
+        assert cuda_ec.LAUNCHES["merkle_level"] == len(levels) - 1
+        for lvl in levels[:-1]:
+            words = torch.from_numpy(
+                np.frombuffer(b"".join(lvl), dtype=">u4").astype(np.uint32).view(np.int32)
+            ).reshape(-1, 8).to(dev)
+            _equal_bytes(SH.merkle_level(words), SH.merkle_level_plain(words))
+
+
+@pytest.mark.parametrize("W", [8, 16])
+def test_gf_matmul_matches_plain_and_native(dev, W):
+    from hbbft_tpu_torch.crypto import rs as RS
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops import gf256 as GF
+
+    gen = np.random.default_rng(W)
+    dtype = np.uint8 if W == 8 else np.uint16
+    host = RS._matmul if W == 8 else RS._matmul16
+    for m, k, n in ((1, 1, 1), (3, 5, 7), (9, 33, 130), (42, 22, 4097), (17, 40, 3)):
+        mat = gen.integers(0, 1 << W, size=(m, k), dtype=dtype)
+        mat[0, 0] = 0
+        data = gen.integers(0, 1 << W, size=(k, n), dtype=dtype)
+        t = torch.from_numpy(data if W == 8 else data.view(np.int16)).to(dev)
+        before = cuda_ec.LAUNCHES["gf_matmul"]
+        got = GF.gf_matmul(mat, t)
+        assert cuda_ec.LAUNCHES["gf_matmul"] == before + 1
+        _equal_bytes(got, GF.gf_matmul_plain(mat, t))
+        got_np = got.cpu().numpy()
+        assert np.array_equal(got_np if W == 8 else got_np.view(np.uint16), host(mat, data))
+
+
+def test_forced_broadcast_on_the_card_matches_host(dev):
+    from hbbft_tpu_torch.crypto.backend import CpuBackend
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
+
+    cs = _smoke()
+    from hbbft_tpu_torch.harness.rbc_probe import RbcProbe
+
+    be = cs.forced(CudaBackend())
+    cuda_ec.reset_launches()
+    with RbcProbe(be) as probe:
+        card = cs.broadcast_1mb(be, nodes=16, payload_bytes=20_000, seed=5)
+    launched = {k: cuda_ec.LAUNCHES[k] for k in cuda_ec.RBC_KERNELS}
+    host = cs.broadcast_1mb(CpuBackend(), nodes=16, payload_bytes=20_000, seed=5)
+    assert (card["messages"], card["digest"]) == (host["messages"], host["digest"])
+    assert launched == probe.sent and all(launched.values())

@@ -335,3 +335,96 @@ def test_mesh_flush_verdicts_match_reference(ring_spy):
     assert got == want and want.count(False) == 1 and got[BAD] is False
     for field in ("prefetched", "flushes", "cache_hits", "fallback_groups", "fallback_items"):
         assert getattr(port.stats, field) == getattr(ref.stats, field), field
+
+
+# ---------------------------------------------------------------------------
+# The sharded MSMs and the epoch's crypto step (reference mesh.py:89-141,
+# :378-449), on tests/test_parallel.py's inputs
+# ---------------------------------------------------------------------------
+
+
+def _short_bits(scalars, nbits):
+    return np.stack(
+        [[(s >> (nbits - 1 - i)) & 1 for i in range(nbits)] for s in scalars]
+    ).astype(np.int32)
+
+
+def _g1_pair(rng, k, bound=RF.R):
+    ks = [rng.randrange(1, bound) for _ in range(k)]
+    return [RC.G1_GEN * s for s in ks], [PC.G1_GEN * s for s in ks]
+
+
+@pytest.mark.parametrize("k,nbits", [(16, 16), (11, 12)])
+def test_sharded_msm_fn_matches_reference_host(k, nbits):
+    rng = random.Random(k)
+    ref_pts, pts = _g1_pair(rng, k)
+    scalars = [rng.randrange(1 << nbits) for _ in range(k)]
+    run = PM.sharded_msm_fn(PM.make_mesh(N_DEV, device="cpu"))
+    out = run(PE.g1_to_limbs(pts), _short_bits(scalars, nbits))
+    assert out.shape == (3, 38)
+    assert PE.g1_from_limbs(out).to_bytes() == RC.g1_multi_exp(ref_pts, scalars).to_bytes()
+
+
+def test_sharded_msm_fn_g2_matches_reference_host():
+    rng = random.Random(22)
+    ks = [rng.randrange(1, RF.R) for _ in range(6)]
+    scalars = [rng.randrange(1 << 12) for _ in range(6)]
+    run = PM.sharded_msm_fn(PM.make_mesh(N_DEV, device="cpu"), g2=True)
+    out = run(PE.g2_to_limbs([PC.G2_GEN * s for s in ks]), _short_bits(scalars, 12))
+    want = RC.g2_multi_exp([RC.G2_GEN * s for s in ks], scalars)
+    assert PE.g2_from_limbs(out).to_bytes() == want.to_bytes()
+
+
+def test_sharded_windowed_and_bit_serial_host_msms_match_reference():
+    rng = random.Random(24)
+    ref_pts, pts = _g1_pair(rng, 24, 1 << 30)
+    scalars = [rng.randrange(1, 1 << 16) for _ in range(24)]
+    mesh = PM.make_mesh(N_DEV, device="cpu")
+    want = RC.g1_multi_exp(ref_pts, scalars).to_bytes()
+    assert PM.sharded_windowed_g1_msm(pts, scalars, mesh=mesh, nbits=16).to_bytes() == want
+    # the host wrapper's 255-bit scalars, one point a shard
+    assert PM.sharded_g1_msm(pts[:4], scalars[:4], mesh=mesh).to_bytes() == (
+        RC.g1_multi_exp(ref_pts[:4], scalars[:4]).to_bytes())
+    assert PM.sharded_g1_msm([], [], mesh=mesh).is_infinity()
+    assert PM.sharded_windowed_g1_msm([], [], mesh=mesh).is_infinity()
+
+
+def test_sharded_epoch_crypto_step_matches_reference_host():
+    import hashlib
+
+    from hbbft_tpu_torch.ops import sha256 as PS
+
+    rng = random.Random(8)
+    k, nbits = 8, 8
+    sks = [rng.randrange(1, RF.R) for _ in range(k)]
+    coeffs = [rng.randrange(1 << nbits) for _ in range(k)]
+    msgs = [bytes([i]) * 20 for i in range(k)]
+    step = PM.sharded_epoch_crypto_fn(PM.make_mesh(N_DEV, device="cpu"))
+    agg1, agg2, digests = step(
+        PE.g1_to_limbs([PC.G1_GEN * 7 * s for s in sks]),
+        _short_bits(coeffs, nbits),
+        PE.g2_to_limbs([PC.G2_GEN * s for s in sks]),
+        PS.pad_messages(msgs)[:, 0, :],
+    )
+    assert PE.g1_from_limbs(agg1).to_bytes() == RC.g1_multi_exp(
+        [RC.G1_GEN * 7 * s for s in sks], coeffs).to_bytes()
+    assert PE.g2_from_limbs(agg2).to_bytes() == RC.g2_multi_exp(
+        [RC.G2_GEN * s for s in sks], coeffs).to_bytes()
+    assert digests.shape == (k, 8)
+    assert PS.digests_to_bytes(digests) == [hashlib.sha256(m).digest() for m in msgs]
+
+
+@pytest.mark.slow
+def test_sharded_msm_fns_match_reference_sharded_programs():
+    """Against the reference's own sharded XLA programs on 4 virtual CPU
+    devices (they compile EC scans for minutes)."""
+    import jax.numpy as jnp
+
+    rng = random.Random(16)
+    ref_pts, pts = _g1_pair(rng, 16)
+    scalars = [rng.randrange(1 << 16) for _ in range(16)]
+    bits = _short_bits(scalars, 16)
+    want = RM.sharded_msm_fn(RM.make_mesh(N_DEV))(
+        jnp.asarray(RE.g1_to_limbs(ref_pts)), jnp.asarray(bits))
+    got = PM.sharded_msm_fn(PM.make_mesh(N_DEV, device="cpu"))(PE.g1_to_limbs(pts), bits)
+    assert PE.g1_from_limbs(got).to_bytes() == RE.g1_from_limbs(want).to_bytes()
