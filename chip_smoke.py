@@ -8,9 +8,9 @@ In order, and with no phase's failure caught:
 1. **Build** — the native host library (``make -C native``) and every
    CUDA kernel of the port (``win_g1``, ``win_g2``, ``scan_g1``,
    ``ring_permute``, ``fr_matmul`` with ``fr_planes`` in one source, and
-   ``cosim_step`` with ``cosim_hist`` in one source, ``sha256`` with
-   ``merkle_level`` in one source, and ``gf_matmul``; one ``nvcc`` per
-   source, all at once), with
+   ``cosim_step`` with ``cosim_hist`` in one source, ``sha256``,
+   ``merkle_forest`` and ``gf_matmul``; one ``nvcc`` per source, all at
+   once), with
    the build seconds and ``ptxas`` resource lines printed.
 2. **Kernels against their plain versions** — at K = 1000 (not a
    multiple of 128) on random r-torsion points with identity rows and
@@ -96,9 +96,10 @@ In order, and with no phase's failure caught:
    parity product's shape to phase 7.  Each of the two launches ``win_g1``
    exactly once, no other EC, Fr or co-sim kernel, and each RBC kernel
    exactly as often as the backend's default size rules send the calls
-   the probe saw to the card (a tree one ``sha256`` and a
-   ``merkle_level`` a level, a codec product one ``gf_matmul``; the same
-   holds for every epoch and sequential run below).  ``win_g1`` is
+   the probe saw to the card (a tree or a wave's forest of trees one
+   ``merkle_forest``, a codec product one ``gf_matmul``: a warm wave
+   three products and two forests; the same holds for every epoch and
+   sequential run below).  ``win_g1`` is
    then timed once at that flush's shape (948,676 points, 96-bit
    scalars), its first and last 1,000 rows held against the plain
    version (the whole shape would take the plain version about a
@@ -150,7 +151,7 @@ In order, and with no phase's failure caught:
    (``win_g1``) on the card, and its RBC size rules at their floor
    (``RBC_FLOOR``), so every codec product and every tree or hash batch
    of 8 or more uniform items runs on the card (``gf_matmul``,
-   ``sha256``, ``merkle_level``).  (a) QueueingHoneyBadger over
+   ``sha256``, ``merkle_forest``).  (a) QueueingHoneyBadger over
    DynamicHoneyBadger at the reference simulation's defaults (10 nodes,
    none dead, 1,000 transactions of 10 bytes, batch 100, ``Random(0)``,
    SilentAdversary with the RANDOM scheduler, real BLS) on a forced
@@ -251,22 +252,28 @@ In order, and with no phase's failure caught:
    messages of 0, 1, 55, 56, 63, 64, 119, 120 and 47,672 bytes (the 1 MB
    broadcast's leaf message) at batches 1, 7 and 1,000 (the plain
    version once on the 1,000, whose first rows are the smaller batches);
-   ``merkle_levels_device`` against ``MerkleTree.levels`` at 1, 2, 3, 11,
-   64 and 1,024 leaves (2-byte leaves; 47,663-byte ones up to 64) and
-   ``merkle_level`` against its plain version on every level;
+   ``merkle_levels_device`` (a forest of one) against
+   ``MerkleTree.levels`` at 1, 2, 3, 11, 64 and 1,024 leaves (2-byte
+   leaves; 47,663-byte ones up to 64), and ``merkle_forest`` against its
+   plain version, every level and roots only, at those 2-byte trees, at
+   the N = 1024 epoch's forests (974 and 1,948 trees of 1,024 2-byte
+   leaves), at the 1 MB broadcast's 64 leaves of 47,663 bytes and at one
+   tree of 4,097 leaves, above a block's shared memory;
    ``gf_matmul`` against its plain version and the native
    ``RS._matmul`` / ``_matmul16``: W = 8 at ``[42, 22] × [22, 47,663]``, a
    ``[22, 22]`` decode, 1, 3 and 4,097 columns, all-zero and all-0xFF
    data; W = 16 at the N = 1024 epoch's ``[682, 342] × [342, 974·L/2]``
-   (L from phase 4b, printed), its ``[342, 342]`` decode and its dead
-   rows ``[50, 342] × [342, L/2]``.  (b) ``bench_broadcast_1mb``
+   (L from phase 4b, printed), its ``[342, 342]`` decode, its wave's dead
+   rows ``[50, 342] × [342, 974·L/2]`` and one proposer's ``[50, 342] ×
+   [342, L/2]``.  (b) ``bench_broadcast_1mb``
    (config 3, ``bench.py:904-938``): 64 nodes, 21 silent,
    ``Random(0xB0).randbytes(1 << 20)`` broadcast by node 0 over the port's
    ``TestNetwork`` (``broadcast_1mb``), on a forced ``CudaBackend()`` and
    on ``CpuBackend()``: every good node outputs the payload, both
    deliver the same messages (count and a digest of their wire bytes),
-   and the card run launches each RBC kernel at least once, exactly as
-   its rules sent.  (d) The sharded programs of ``parallel/mesh.py`` on
+   and the card run launches ``merkle_forest`` and ``gf_matmul`` at least
+   once, each exactly as its rules sent (its trees hash their own leaves:
+   no ``sha256``).  (d) The sharded programs of ``parallel/mesh.py`` on
    the 4-shard mesh at k = 64, 255-bit scalars (``mesh_programs_check``):
    G1 and G2 ``sharded_msm_fn``, ``sharded_windowed_g1_msm``,
    ``sharded_g1_msm`` and ``sharded_epoch_crypto_fn`` against native
@@ -307,14 +314,17 @@ In order, and with no phase's failure caught:
    (``floor_ms``), the step's grid empty and crossing its barrier
    (``grid_ms``, ``barrier_ms``); ``cosim_hist``'s is timed alone, its
    ``launches`` the mesh twin's, its library call one ``index_add_``;
-   both bound by their bytes; ``sha256``, ``merkle_level`` and
-   ``gf_matmul``'s ``launches`` are the forced 1 MB broadcast's,
+   both bound by their bytes; ``merkle_forest`` and ``gf_matmul``'s
+   ``launches`` are the forced 1 MB broadcast's, ``sha256``'s the sharded
+   epoch step's on the mesh (7(d)),
    ``launches_by_path`` every path's, the epochs', the sequential runs'
    and the churn's included; ``sha256`` is timed at 1,000 × 47,672 B,
-   ``merkle_level`` at 512 parents, ``gf_matmul`` at the broadcast's W = 8
-   parity product with the N = 1024 epoch's W = 16 one in ``w16``, its
-   library column ``torch._int_mm`` on the binary expansion's shape, which
-   is not the same function; every other shape is in ``shapes``),
+   ``merkle_forest`` at the N = 1024 epoch's forest of 974 trees with
+   every level (its bound ``forest_bound``), ``gf_matmul`` at the
+   broadcast's W = 8 parity product with the N = 1024 epoch's W = 16 one
+   in ``w16``, its library column ``torch._int_mm`` on the binary
+   expansion's shape, which is not the same function; every other shape
+   is in ``shapes``),
    the card's name and power limit, and the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -325,6 +335,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import random
 import statistics
 import subprocess
@@ -447,6 +458,13 @@ RBC_SEED = 0xBC
 RBC_SHA_LENGTHS = (0, 1, 55, 56, 63, 64, 119, 120, 47_672)
 RBC_SHA_BATCHES = (1, 7, 1000)
 RBC_LEAVES = (1, 2, 3, 11, 64, 1024)
+# Merkle forests (trees, leaves, bytes a leaf): the N = 1024 epoch's wave
+# (974 proposers' commitments; twice that, a wave's two forests as one) and
+# the 1 MB broadcast's tree
+RBC_FORESTS = ((974, 1024, 2), (1948, 1024, 2), (1, 64, 47_663))
+# one tree whose rows exceed a block's shared memory (csrc/merkle.cu keeps
+# them in global memory)
+RBC_BIG_LEAVES = 4097
 # bench_broadcast_1mb (bench.py:904-938): 64 nodes, 21 of them silent, a
 # 1 MB payload from Random(0xB0); 22 data shards of 47,663 bytes, 42 parity
 BCAST_NODES = 64
@@ -496,8 +514,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# main() keeps every line it logs here too, where a caller that keeps only
+# the output's end finds the whole run
+LOG_FILE = os.path.join("chiprun_out", "chip_smoke.log")
+_log_open = False
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if _log_open:
+        with open(LOG_FILE, "a") as fh:
+            fh.write(msg + "\n")
 
 
 def card_line() -> str:
@@ -641,10 +668,19 @@ def sha_bound(batch: int, nblocks: int):
     return ops_or_bytes(batch * nblocks * SHA_OPS_PER_BLOCK, batch * (64 * nblocks + 32))
 
 
-def merkle_bound(parents: int):
-    """One Merkle level of ``parents`` nodes: two compressions a node
-    (0x01 ‖ l ‖ r is 65 bytes), 64 bytes read and 32 written."""
-    return ops_or_bytes(parents * 2 * SHA_OPS_PER_BLOCK, parents * 96)
+def forest_bound(trees: int, leaves: int, length: int, roots_only: bool = False):
+    """A forest of ``trees`` Merkle trees of ``leaves`` leaves of ``length``
+    bytes: each leaf's compressions (0x00 ‖ index₈ ‖ value and its
+    padding) and two a parent on every level, or the values read once and
+    the rows written once (every level, or only the roots), the larger."""
+    from hbbft_tpu_torch.ops.sha256 import level_sizes
+
+    sizes = level_sizes(leaves)
+    parents = sum(rows // 2 for rows in sizes[:-1])
+    leaf_blocks = (9 + length + 72) // 64
+    ops = trees * (leaves * leaf_blocks + 2 * parents) * SHA_OPS_PER_BLOCK
+    out_bytes = trees * 32 * (1 if roots_only else sum(sizes))
+    return ops_or_bytes(ops, trees * leaves * length + out_bytes)
 
 
 def gf_bound(W: int, m: int, k: int, n: int):
@@ -1812,12 +1848,16 @@ def sha_check(record_err, lengths=RBC_SHA_LENGTHS, batches=RBC_SHA_BATCHES, seed
     return plain_ms
 
 
-def merkle_check(record_err, leaves=RBC_LEAVES, lengths=(2, 47_663), seed=RBC_SEED,
-                 device=None) -> None:
-    """``merkle_levels_device`` against ``MerkleTree.levels`` at every leaf
-    count (uniform 2-byte leaves, the N = 1024 epoch's shards, and the 1 MB
-    broadcast's 47,663-byte ones up to 64 leaves), and ``merkle_level``
-    against its plain version on every level of each tree."""
+def merkle_check(record_err, leaves=RBC_LEAVES, lengths=(2, 47_663), forests=RBC_FORESTS,
+                 big_leaves=RBC_BIG_LEAVES, seed=RBC_SEED, device=None) -> None:
+    """``merkle_levels_device`` (a forest of one) against
+    ``MerkleTree.levels`` at every leaf count (uniform 2-byte leaves, the
+    N = 1024 epoch's shards, and the 1 MB broadcast's 47,663-byte ones up
+    to 64 leaves); ``merkle_forest`` against its plain version, every
+    level and roots only, on those 2-byte trees, on each forest of
+    ``forests`` (trees, leaves, bytes) and on one tree of ``big_leaves``
+    2-byte leaves (above a block's shared memory on the card), a few of
+    each forest's trees against ``MerkleTree`` too."""
     import torch
 
     from hbbft_tpu_torch.crypto.merkle import MerkleTree
@@ -1825,20 +1865,35 @@ def merkle_check(record_err, leaves=RBC_LEAVES, lengths=(2, 47_663), seed=RBC_SE
 
     dev = torch.device("cuda") if device is None else torch.device(device)
     gen = np.random.default_rng(seed)
+
+    def forest(values, what):
+        plain = SH.merkle_forest_plain(values, sha=sha256_plain_replayed)
+        record_err("merkle_forest", SH.merkle_forest(values), plain, f"at {what}")
+        record_err("merkle_forest", SH.merkle_forest(values, roots_only=True), plain[:, -1],
+                   f"at {what}, roots only")
+        T, n, _ = values.shape
+        host = values.cpu().numpy()
+        rows = SH._words_np(plain).astype(">u4").view(np.uint8).reshape(T, -1)
+        for t in sorted({0, T - 1}):
+            want = MerkleTree([v.tobytes() for v in host[t]]).levels
+            if SH.split_levels(rows[t].tobytes(), n) != want:
+                fail(f"merkle_forest at {what}: tree {t} differs from MerkleTree")
+
     for length in lengths:
         for n in leaves:
             if length > 1024 and n > 64:
                 continue
             vals = [gen.integers(0, 256, size=length, dtype=np.uint8).tobytes() for _ in range(n)]
-            levels = SH.merkle_levels_device(vals, dev)
-            if levels != MerkleTree(vals).levels:
+            if SH.merkle_levels_device(vals, dev) != MerkleTree(vals).levels:
                 fail(f"merkle_levels_device at {n} leaves of {length} B differs from MerkleTree")
-            for lvl in levels[:-1]:
-                words = torch.from_numpy(
-                    np.frombuffer(b"".join(lvl), dtype=">u4").astype(np.uint32).view(np.int32)
-                ).reshape(-1, 8).to(dev)
-                record_err("merkle_level", SH.merkle_level(words), SH.merkle_level_plain(words),
-                           f"at {len(lvl)} children ({n} leaves of {length} B)")
+            if length <= 1024:
+                values = torch.from_numpy(
+                    np.frombuffer(b"".join(vals), np.uint8).reshape(1, n, length).copy()).to(dev)
+                forest(values, f"1 × {n} × {length} B")
+    for T, n, length in list(forests) + [(1, big_leaves, 2)]:
+        values = torch.from_numpy(
+            gen.integers(0, 256, size=(T, n, length), dtype=np.uint8)).to(dev)
+        forest(values, f"{T} × {n} × {length} B")
 
 
 def gf_check(record_err, epoch_cols: int, seed=RBC_SEED, device=None, nodes8=BCAST_NODES,
@@ -1848,8 +1903,11 @@ def gf_check(record_err, epoch_cols: int, seed=RBC_SEED, device=None, nodes8=BCA
     1 MB broadcast's parity ``[42, 22] × [22, 47,663]`` and a ``[22, 22]``
     decode, at 1, 3 and 4,097 columns, on all-zero and all-0xFF data;
     W = 16 at the N = 1024 epoch's parity ``[682, 342] × [342,
-    epoch_cols]``, its ``[342, 342]`` decode and its dead rows ``[50, 342]
-    × [342, epoch_cols / 974]`` (the CPU tests shrink the node counts)."""
+    epoch_cols]``, its ``[342, 342]`` decode, its wave's dead rows
+    ``[50, 342] × [342, epoch_cols]`` (one product a wave) and one
+    proposer's ``[50, 342] × [342, epoch_cols / 974]``, a one-column
+    product at the epoch's shards (the CPU tests shrink the node
+    counts)."""
     import torch
 
     from hbbft_tpu_torch.crypto import rs as RS
@@ -1892,6 +1950,8 @@ def gf_check(record_err, epoch_cols: int, seed=RBC_SEED, device=None, nodes8=BCA
           f"W=16 parity [{n16 - k16}, {k16}]·[{k16}, {epoch_cols}]")
     check(dec16, rand16(k16, epoch_cols), RS._matmul16,
           f"W=16 decode [{k16}, {k16}]·[{k16}, {epoch_cols}]")
+    check(codec16.matrix[dead], rand16(k16, epoch_cols), RS._matmul16,
+          f"W=16 the wave's dead rows [{len(dead)}, {k16}]·[{k16}, {epoch_cols}]")
     check(codec16.matrix[dead], rand16(k16, per), RS._matmul16,
           f"W=16 dead rows [{len(dead)}, {k16}]·[{k16}, {per}]")
 
@@ -1986,8 +2046,9 @@ def rbc_phase(record_err, timed, device_timed, epoch_cols: int, mesh) -> dict:
     gf_check(record_err, cols16)
     out["rbc_check"] = dict(cuda_ec.LAUNCHES)
     log(f"rbc (a): sha256 equal to its plain version and hashlib at {RBC_SHA_BATCHES} × "
-        f"{RBC_SHA_LENGTHS} B; merkle_levels_device equal to MerkleTree at {RBC_LEAVES} leaves "
-        f"and merkle_level to its plain version on every level; gf_matmul W=8 and W=16 equal to "
+        f"{RBC_SHA_LENGTHS} B; merkle_levels_device equal to MerkleTree at {RBC_LEAVES} leaves; "
+        f"merkle_forest equal to its plain version (levels and roots) at those trees, the forests "
+        f"{RBC_FORESTS} and 1 × {RBC_BIG_LEAVES} × 2 B; gf_matmul W=8 and W=16 equal to "
         f"its plain version and the native products (the N={BIG_NODES} epoch's L = "
         f"{epoch_cols // (BIG_NODES - BIG_DEAD)} bytes a shard, {cols16} symbol columns); "
         f"launches {out['rbc_check']}")
@@ -1999,8 +2060,9 @@ def rbc_phase(record_err, timed, device_timed, epoch_cols: int, mesh) -> dict:
         card = broadcast_1mb(card_be)
     out["broadcast1mb"] = dict(cuda_ec.LAUNCHES)
     check_launches("the forced 1 MB broadcast", out["broadcast1mb"], probe.sent, {})
-    if any(out["broadcast1mb"][k] < 1 for k in cuda_ec.RBC_KERNELS):
-        fail(f"the forced 1 MB broadcast did not launch every RBC kernel: {out['broadcast1mb']}")
+    if any(out["broadcast1mb"][k] < 1 for k in ("merkle_forest", "gf_matmul")):
+        fail(f"the forced 1 MB broadcast did not launch merkle_forest and gf_matmul: "
+             f"{out['broadcast1mb']}")
     host = broadcast_1mb(CpuBackend())
     if (card["messages"], card["digest"]) != (host["messages"], host["digest"]):
         fail(f"the 1 MB broadcast's messages differ: card {card}, host {host}")
@@ -2037,22 +2099,30 @@ def rbc_phase(record_err, timed, device_timed, epoch_cols: int, mesh) -> dict:
                          "bound_ms": b[0], "bound_by": b[1]})
     row = sha_rows[len(RBC_SHA_LENGTHS) - 1]
     out["sha256"] = dict(row, plain_ms=sha_plain_ms[RBC_SHA_LENGTHS[-1]], shapes=sha_rows)
-    merkle_rows = []
-    for parents in (BIG_NODES // 2, BCAST_NODES // 2):
-        level = blocks_of(2 * parents, 32)[:, 0, :8].contiguous()
-        b = merkle_bound(parents)
-        merkle_rows.append({"parents": parents, "ms": kernel_ms(lambda: SH.merkle_level(level)),
+    forest_rows = []
+    n_live = BIG_NODES - BIG_DEAD
+    for T, n, length, roots_only in ((n_live, BIG_NODES, 2, False), (n_live, BIG_NODES, 2, True),
+                                     (2 * n_live, BIG_NODES, 2, False), (1, BIG_NODES, 2, False),
+                                     (1, BCAST_NODES, 47_663, False),
+                                     (1, RBC_BIG_LEAVES, 2, False)):
+        values = torch.from_numpy(
+            gen.integers(0, 256, size=(T, n, length), dtype=np.uint8)).to(dev)
+        b = forest_bound(T, n, length, roots_only)
+        forest_rows.append({"trees": T, "leaves": n, "bytes": length, "roots_only": roots_only,
+                            "ms": kernel_ms(lambda: SH.merkle_forest(values, roots_only)),
                             "bound_ms": b[0], "bound_by": b[1]})
-        if parents == BIG_NODES // 2:
-            _, plain_ms = timed(lambda: SH.merkle_level_plain(level))
-    out["merkle_level"] = dict(merkle_rows[0], plain_ms=plain_ms, shapes=merkle_rows)
+        if len(forest_rows) == 1:
+            _, plain_ms = timed(lambda: SH.merkle_forest_plain(values))
+    out["merkle_forest"] = dict(forest_rows[0], plain_ms=plain_ms, shapes=forest_rows)
 
     def gf_row(W, mat, cols, what, plain_lib=False):
         k = mat.shape[1]
         dtype = torch.uint8 if W == 8 else torch.int16
+        # rows at a 16-byte stride, as the device codecs hand their data over
+        width = -(-cols * W // 128) * 128 // W
         data = torch.randint(-128 if W == 8 else -(1 << 15), 128 if W == 8 else 1 << 15,
-                             (k, cols), dtype=torch.int32 if W == 16 else torch.int16,
-                             device=dev).to(dtype)
+                             (k, width), dtype=torch.int32 if W == 16 else torch.int16,
+                             device=dev).to(dtype)[:, :cols]
         b = gf_bound(W, mat.shape[0], k, cols)
         r = {"w": W, "shape": [mat.shape[0], k, cols], "what": what,
              "ms": kernel_ms(lambda: GF.gf_matmul(mat, data)), "bound_ms": b[0], "bound_by": b[1],
@@ -2078,12 +2148,13 @@ def rbc_phase(record_err, timed, device_timed, epoch_cols: int, mesh) -> dict:
         gf_row(16, c16.matrix[k16:], cols16, "epoch1024 parity", plain_lib=True),
         gf_row(16, c16.decode_matrix([i for i in range(BIG_NODES) if i not in dead][:k16]), cols16,
                "epoch1024 decode"),
+        gf_row(16, c16.matrix[dead], cols16, "epoch1024 the wave's dead rows"),
         gf_row(16, c16.matrix[dead], cols16 // (BIG_NODES - BIG_DEAD), "epoch1024 dead rows"),
         gf_row(8, c8.matrix[k8:], shard, "broadcast1mb parity", plain_lib=True),
         gf_row(8, c8.decode_matrix(list(range(k8, 2 * k8))), shard, "broadcast1mb decode"),
     ]
-    out["gf_matmul"] = dict(gf_rows[3], w16=gf_rows[0], shapes=gf_rows)
-    for name in ("sha256", "merkle_level", "gf_matmul"):
+    out["gf_matmul"] = dict(gf_rows[4], w16=gf_rows[0], shapes=gf_rows)
+    for name in ("sha256", "merkle_forest", "gf_matmul"):
         log(f"rbc (e) {name}: " + json.dumps(out[name]))
     log(f"rbc phase: {time.perf_counter() - t_phase} s")
     return out
@@ -2101,6 +2172,10 @@ def main() -> int:
     except ImportError as exc:
         fail(f"run from the root of a checkout of the repo ({exc})")
     dev = torch.device("cuda")
+    global _log_open
+    os.makedirs(os.path.dirname(LOG_FILE), exist_ok=True)
+    open(LOG_FILE, "w").close()
+    _log_open = True
     log(
         f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}"
@@ -2143,7 +2218,7 @@ def main() -> int:
     compared = {"win_g1": "canonical", "win_g2": "canonical", "scan_g1": "canonical",
                 "ring_permute": "bytes", "fr_matmul": "words", "fr_planes": "bytes",
                 "cosim_hist": "bytes", "cosim_step": "bytes", "sha256": "bytes",
-                "merkle_level": "bytes", "gf_matmul": "bytes"}
+                "merkle_forest": "bytes", "gf_matmul": "bytes"}
 
     def record_err(name: str, got, plain, what: str) -> None:
         torch.cuda.synchronize()
@@ -2718,7 +2793,8 @@ def main() -> int:
         + json.dumps(res.phases))
     log(f"epoch N={BIG_NODES} warm RBC split (rbc {res.phases.get('rbc')} s): walls "
         + json.dumps(rbc_split.walls) + ", calls " + json.dumps(rbc_split.calls)
-        + ", products (m, k, byte columns) " + json.dumps(rbc_split.shapes))
+        + ", products (m, k, byte columns) " + json.dumps(rbc_split.shapes)
+        + ", RBC launches " + json.dumps(rbc_split.sent))
     del sim, res
 
     # win_g1 timed at the N = 1024 epoch's flush shape (the flush points
@@ -3119,8 +3195,11 @@ def main() -> int:
             dict(
                 # library_ms None: no PyTorch call hashes; ms and plain_ms at
                 # 1,000 messages of 47,672 B (the 1 MB broadcast's leaf
-                # message); launches: the forced 1 MB broadcast's
-                row("sha256", "hbbft_tpu/ops/sha256_jax.py:90", rbc["broadcast1mb"]["sha256"],
+                # message); launches: the sharded epoch step's on the mesh
+                # (the trees hash their own leaves in merkle_forest, so the
+                # broadcasts and epochs launch no sha256)
+                row("sha256", "hbbft_tpu/ops/sha256_jax.py:90",
+                    rbc["mesh_programs"]["sharded_epoch_crypto_fn"]["sha256"],
                     rbc["sha256"]["ms"], rbc["sha256"]["plain_ms"],
                     (rbc["sha256"]["bound_ms"], rbc["sha256"]["bound_by"])),
                 replaces_kind="an XLA program (_compress / sha256_device), not a Pallas kernel",
@@ -3128,16 +3207,19 @@ def main() -> int:
                 shapes=rbc["sha256"]["shapes"],
             ),
             dict(
-                # library_ms None: no PyTorch call hashes; one level of 512
-                # parents (the first of a 1,024-leaf tree)
-                row("merkle_level", "hbbft_tpu/ops/sha256_jax.py:147",
-                    rbc["broadcast1mb"]["merkle_level"], rbc["merkle_level"]["ms"],
-                    rbc["merkle_level"]["plain_ms"],
-                    (rbc["merkle_level"]["bound_ms"], rbc["merkle_level"]["bound_by"]),
-                    source="sha256"),
-                replaces_kind="a level of an XLA program's Merkle tree (merkle_levels_device), "
-                              "not a Pallas kernel",
-                shape=[rbc["merkle_level"]["parents"]], shapes=rbc["merkle_level"]["shapes"],
+                # library_ms None: no PyTorch call hashes; ms at the N = 1024
+                # epoch's forest of 974 trees of 1,024 2-byte leaves, every
+                # level; every other forest timed in shapes
+                row("merkle_forest", "hbbft_tpu/ops/sha256_jax.py:147",
+                    rbc["broadcast1mb"]["merkle_forest"], rbc["merkle_forest"]["ms"],
+                    rbc["merkle_forest"]["plain_ms"],
+                    (rbc["merkle_forest"]["bound_ms"], rbc["merkle_forest"]["bound_by"]),
+                    source="merkle"),
+                replaces_kind="an XLA program's Merkle tree (merkle_levels_device), not a "
+                              "Pallas kernel",
+                shape=[rbc["merkle_forest"]["trees"], rbc["merkle_forest"]["leaves"],
+                       rbc["merkle_forest"]["bytes"]],
+                shapes=rbc["merkle_forest"]["shapes"],
             ),
             dict(
                 # ms at the 1 MB broadcast's W = 8 parity product; w16 the

@@ -11,12 +11,22 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
+
 from . import fields as F
 from . import threshold as T
 from .curve import G1, G2, g1_multi_exp, g2_multi_exp
 from .hashing import sha256
 from .merkle import MerkleTree
 from .rs import make_codec
+
+
+def tree_values(groups) -> List[List[bytes]]:
+    """The value lists of a batch of Merkle trees: ``groups`` is a sequence
+    of byte-value lists, or a ``[T, n, len]`` uint8 array (a tree a row)."""
+    if isinstance(groups, np.ndarray):
+        return [[row.tobytes() for row in g] for g in groups]
+    return [list(g) for g in groups]
 
 
 class EagerFinalizer:
@@ -75,6 +85,14 @@ class CpuBackend:
 
     def merkle_tree(self, values: List[bytes]) -> MerkleTree:
         return MerkleTree(values)
+
+    def merkle_trees(self, groups, roots_only: bool = False) -> list:
+        """A tree per group of values (:func:`tree_values`), this class's
+        ``merkle_tree`` tree after tree; with ``roots_only`` their roots.
+        The port's batch form of ``merkle_tree`` (the reference has none):
+        ``CudaBackend`` builds the trees as one forest on the card."""
+        trees = [CpuBackend.merkle_tree(self, values) for values in tree_values(groups)]
+        return [t.root_hash for t in trees] if roots_only else trees
 
     def rs_codec(self, data_shards: int, parity_shards: int):
         return make_codec(data_shards, parity_shards)

@@ -10,10 +10,12 @@ crypto batched:
 
 - **Reliable broadcast**: all uncorrupted instances in one wave — one
   parity matmul, one cached decode matrix, one reconstruction matmul,
-  Merkle commitments checked against an independent rebuild.  The RS
-  products, SHA-256 and Merkle trees run where the backend's size rules
-  send them: ``CudaBackend``'s ``gf_matmul``, ``sha256`` and
-  ``merkle_level`` kernels, or the native host (``CpuBackend``).
+  one forest of every proposer's Merkle commitment checked against an
+  independent rebuild, one product of the dead nodes' rows and one
+  roots-only forest of the reconstructions.  The RS products and Merkle
+  trees run where the backend's size rules send them: ``CudaBackend``'s
+  ``gf_matmul`` and ``merkle_forest`` kernels, or the native host
+  (``CpuBackend``).
 - **Binary agreement** (``VectorizedAgreement``): per-instance state
   uniform across correct nodes, per-node estimates ([P, N] array), the
   reference's coin schedule; every real threshold coin pending in a
@@ -1246,6 +1248,12 @@ class EpochResult:
     )  # ``AgreementResult.class_epochs`` (``div_schedule`` instances)
 
 
+def _forest(shards: np.ndarray, trees: int, width: int) -> np.ndarray:
+    """``[n, trees·width]`` shard bytes (tree j's shard i is row i's j-th
+    ``width`` bytes) → the ``[trees, n, width]`` leaf values of a forest."""
+    return np.ascontiguousarray(shards.reshape(shards.shape[0], trees, width).transpose(1, 0, 2))
+
+
 class VectorizedHoneyBadgerSim:
     """Full-stack HoneyBadger co-simulation: encrypt → N reliable
     broadcasts → N binary agreements (common subset) → threshold
@@ -2125,10 +2133,15 @@ class VectorizedHoneyBadgerSim:
     ) -> Dict[Any, bytes]:
         """All uncorrupted broadcast instances in one wave: a single
         parity matmul over [k, P·L], one cached decode matrix for the
-        shared erasure pattern, a single reconstruction matmul, then
-        per-instance Merkle commitment (+ re-root self-check unless
-        elided).  Shard width is uniform across instances (the framing's
-        length header makes padding invisible to the decoded value).
+        shared erasure pattern, a single reconstruction matmul, every
+        instance's Merkle commitment in one forest (``ops.merkle_trees``),
+        and unless elided the re-root self-check per instance, one
+        product of the dead nodes' rows over the instances that passed it
+        and one roots-only forest of their reconstructions; the outcomes
+        (values, the per-instance replay, faults) then follow in proposer
+        order, as a loop over the instances would give them.  Shard width
+        is uniform across instances (the framing's length header makes
+        padding invisible to the decoded value).
         ``diag``: per-epoch diagnostics sink (``decode_exhausted``).
         The only instance state touched is ``_decode_start``, a
         window-retry hint where a pipelined-thread race costs at most
@@ -2190,48 +2203,61 @@ class VectorizedHoneyBadgerSim:
             encoded = data_all
             data_rec = data_all
 
+        # every proposer's commitment tree in one forest: tree j's leaf i is
+        # encoded[i, jL:(j+1)L]
+        trees = ops.merkle_trees(_forest(encoded, P, L))
+        replay: Set[int] = set()
+        roots: Dict[int, bytes] = {}
+        if self.verify_honest:
+            # echo-proof validation, FUSED (a per-proof Python loop would
+            # build ~N² proof objects and chain walks an epoch): the N
+            # proofs of one tree share their internal chain nodes, so
+            # validating all of them, deduplicated, IS one rebuild of every
+            # internal node from the shard values.  The rebuild goes through
+            # the INDEPENDENT pure-Python tree assembly (not a second call
+            # of the same ops builder, which would compare a deterministic
+            # function to itself) and is compared level-by-level against
+            # the ops-built commitment — the same cross-implementation power
+            # the per-proof chain recompute had, at N hashes instead of
+            # N·log N Python objects.  Any mismatch (backend bug, exotic ops
+            # codec) replays the exact per-instance path so fault
+            # attribution matches the sequential semantics.
+            for j in range(P):
+                sl = slice(j * L, (j + 1) * L)
+                rebuilt = self._reroot([encoded[i, sl].tobytes() for i in range(n)]).levels
+                same = getattr(trees[j], "levels_equal", None)
+                if not (same(rebuilt) if same is not None else rebuilt == trees[j].levels):
+                    replay.add(j)
+            passed = [j for j in range(P) if j not in replay]
+            if passed:
+                # each passing proposer's shards as reconstructed: the
+                # decoded data rows, the parity rows as encoded, and the
+                # dead nodes' rows recomputed from the decoded data, all
+                # proposers' in one product
+                cols = (slice(None) if len(passed) == P
+                        else np.concatenate([np.arange(j * L, (j + 1) * L) for j in passed]))
+                rec = np.vstack([data_rec, encoded[k:]])[:, cols]
+                if self.parity and dead_idx:
+                    dead_rows = sorted(dead_idx)
+                    rec[dead_rows, :] = self._codec_matmul(
+                        self._codec_mat()[dead_rows, :], data_rec[:, cols]
+                    )
+                rec_roots = ops.merkle_trees(_forest(rec, len(passed), L), roots_only=True)
+                roots = dict(zip(passed, rec_roots))
+
+        # outcomes in pid order, so that the fault log's order is the
+        # per-proposer loop's
         out: Dict[Any, bytes] = {}
         for j, pid in enumerate(pids):
-            sl = slice(j * L, (j + 1) * L)
-            shards = [encoded[i, sl].tobytes() for i in range(n)]
-            mtree = ops.merkle_tree(shards)
-            if self.verify_honest:
-                # echo-proof validation, FUSED (a per-proof Python loop
-                # would build ~N² proof objects and chain walks an
-                # epoch): the N proofs of one tree share their
-                # internal chain nodes, so validating all of them,
-                # deduplicated, IS one rebuild of every internal node
-                # from the shard values.  The rebuild goes through the
-                # INDEPENDENT pure-Python tree assembly (not a second
-                # call of the same ops builder, which would compare a
-                # deterministic function to itself) and is compared
-                # level-by-level against the ops-built commitment —
-                # the same cross-implementation power the per-proof
-                # chain recompute had, at N hashes instead of N·log N
-                # Python objects.  Any mismatch (backend bug, exotic
-                # ops codec) replays the exact per-instance path so
-                # fault attribution matches the sequential semantics.
-                if self._reroot(shards).levels != mtree.levels:
-                    value = self._rbc(pid, payloads[pid], dead, None, faults)
-                    if value is not None:
-                        out[pid] = value
-                    continue
-                rec = [
-                    data_rec[i, sl].tobytes()
-                    if i < k
-                    else encoded[i, sl].tobytes()
-                    for i in range(n)
-                ]
-                if self.parity and dead_idx:
-                    rows = self._codec_matmul(
-                        self._codec_mat()[sorted(dead_idx), :], data_rec[:, sl]
-                    )
-                    for rj, i in enumerate(sorted(dead_idx)):
-                        rec[i] = rows[rj].tobytes()
-                if ops.merkle_tree(rec).root_hash != mtree.root_hash:
-                    faults.add(pid, FaultKind.BROADCAST_DECODING_FAILED)
-                    continue
-            payload = data_rec[:, sl].tobytes()
+            if j in replay:
+                value = self._rbc(pid, payloads[pid], dead, None, faults)
+                if value is not None:
+                    out[pid] = value
+                continue
+            if self.verify_honest and roots[j] != trees[j].root_hash:
+                faults.add(pid, FaultKind.BROADCAST_DECODING_FAILED)
+                continue
+            payload = data_rec[:, j * L : (j + 1) * L].tobytes()
             shard_list = [
                 payload[i * L : (i + 1) * L] for i in range(k)
             ]

@@ -1,25 +1,27 @@
 """Where a run's reliable-broadcast work went, and what it cost.
 
 :class:`RbcProbe` is a context manager over one backend instance (the one
-whose ``sha256_many``, ``merkle_tree`` and ``rs_codec`` a run calls, or
-that a ``BatchingBackend`` forwards them to) and, optionally, one
-``VectorizedHoneyBadgerSim`` over it.  While it is open it wraps those
-methods as attributes of these two instances alone (no module global is
-rebound), and keeps:
+whose ``sha256_many``, ``merkle_tree``, ``merkle_trees`` and ``rs_codec``
+a run calls, or that a ``BatchingBackend`` forwards them to) and,
+optionally, one ``VectorizedHoneyBadgerSim`` over it.  While it is open it
+wraps those methods as attributes of these two instances alone (no
+module global is rebound), and keeps:
 
 - ``sent``: the launches of each RBC kernel that the backend's size rules
   send to the card for the calls seen (``CudaBackend.sha_on_device`` and
-  ``tree_on_device``, a device codec's ``rule``): a batch of messages one
-  ``sha256``; a tree one ``sha256`` for its leaves and one
-  ``merkle_level`` a level above them; a codec product one ``gf_matmul``.
-  A backend without size rules (``CpuBackend``) sends none.  A run on the
-  card holds ``cuda_ec.LAUNCHES`` to it.
+  ``forest_on_device``, a device codec's ``rule``): a batch of messages
+  one ``sha256``; a tree (a forest of one) or a batch of trees one
+  ``merkle_forest``, which hashes its own leaves; a codec product one
+  ``gf_matmul``.  A backend without size rules (``CpuBackend``) sends
+  none.  A run on the card holds ``cuda_ec.LAUNCHES`` to it.
 - ``walls`` and ``calls`` by work: the sim's parity, decode and dead rows'
-  products (``_codec_matmul``, in that order within each ``_rbc_phase``),
-  the backend's trees (an epoch's commitments and reconstruction checks)
-  and the sim's independent re-root (``_reroot``); ``shapes`` has each
-  product's first (m, k, byte columns).  Each product and tree returns
-  host data, so a wall covers the card's work.
+  products (``_codec_matmul``, in that order within each ``_rbc_phase``:
+  one of each a wave), the backend's trees (a call of ``merkle_tree`` or
+  ``merkle_trees``: an epoch's wave makes a forest of commitments and a
+  roots-only forest of reconstructions) and the sim's independent re-root
+  (``_reroot``, a tree a proposer); ``shapes`` has each product's first
+  (m, k, byte columns).  Each product and tree returns host data, so a
+  wall covers the card's work.
 
 The sim's codec and every device codec made while the probe is open
 (``rs_codec``) have their ``matmul`` wrapped too.  The counters are not
@@ -32,9 +34,11 @@ from __future__ import annotations
 import time
 from typing import Any, Callable, Dict, List, Tuple
 
+import numpy as np
+
 from ..ops import gf256 as GF
 from ..ops.cuda_ec import RBC_KERNELS
-from ..ops.sha256 import level_sizes
+from ..ops.sha256 import forest_shape
 
 SPLIT_KEYS = ("parity", "decode", "dead_rows", "trees", "reroot")
 
@@ -79,7 +83,12 @@ class RbcProbe:
     def __enter__(self):
         ops = self.ops
         on_sha = getattr(ops, "sha_on_device", None)
-        on_tree = getattr(ops, "tree_on_device", None)
+        on_forest = getattr(ops, "forest_on_device", None)
+
+        def count_forest(groups) -> None:
+            shape = forest_shape(groups)
+            if on_forest is not None and shape is not None and on_forest(*shape):
+                self.sent["merkle_forest"] += 1
 
         def sha256_many(fn):
             def counted(items):
@@ -93,10 +102,17 @@ class RbcProbe:
         def merkle_tree(fn):
             def counted(values):
                 values = list(values)
-                if on_tree is not None and on_tree(values):
-                    self.sent["sha256"] += 1
-                    self.sent["merkle_level"] += len(level_sizes(len(values))) - 1
+                count_forest([values])
                 return self._timed("trees", fn, values)
+
+            return counted
+
+        def merkle_trees(fn):
+            def counted(groups, roots_only=False):
+                if not isinstance(groups, np.ndarray):
+                    groups = [list(g) for g in groups]
+                count_forest(groups)
+                return self._timed("trees", fn, groups, roots_only)
 
             return counted
 
@@ -105,6 +121,7 @@ class RbcProbe:
 
         self._wrap(ops, "sha256_many", sha256_many)
         self._wrap(ops, "merkle_tree", merkle_tree)
+        self._wrap(ops, "merkle_trees", merkle_trees)
         self._wrap(ops, "rs_codec", rs_codec)
         if self.sim is not None:
             self._wrap_sim(self.sim)

@@ -27,18 +27,21 @@ mesh failure raises like any device failure.
 
 The reliable-broadcast plane (``sha256_many``, ``merkle_tree``,
 ``rs_codec``) is the port of ``backend_tpu.py:184-222``: batched SHA-256
-and Merkle levels through the ``sha256`` and ``merkle_level`` kernels
-(``ops/sha256.py``), Reed–Solomon products through ``gf_matmul``
-(``ops/gf256.py``'s device codecs, GF(2^16) past 256 shards).  The
-reference sends it to the device only where the native host library is
-missing; here size rules measured on the card take that place
-(``scripts/torch_rbc_band.py``), each a pure predicate of the call's
-sizes: a uniform batch of at least ``SHA_DEVICE_MIN_ITEMS`` messages (never
-below the reference's 8) and at most ``SHA_DEVICE_MAX_BYTES`` bytes in all
-(:meth:`CudaBackend.sha_on_device`), a tree of at least
-``MERKLE_DEVICE_MIN_LEAVES`` uniform leaves of at most
-``MERKLE_DEVICE_MAX_BYTES`` bytes in all (:meth:`tree_on_device`), and a
-codec product (the device codec asks per product, :meth:`gf_rule`)
+through the ``sha256`` kernel, Merkle trees through the ``merkle_forest``
+kernel (``ops/sha256.py``; :meth:`CudaBackend.merkle_trees`, the port's
+batch form, builds a whole batch of trees in one launch, and
+``merkle_tree`` is a forest of one), Reed–Solomon products through
+``gf_matmul`` (``ops/gf256.py``'s device codecs, GF(2^16) past 256
+shards).  The reference sends it to the device only where the native
+host library is missing; here size rules measured on the card take that
+place (``scripts/torch_rbc_band.py``), each a pure predicate of the
+call's sizes: a uniform batch of at least ``SHA_DEVICE_MIN_ITEMS``
+messages (never below the reference's 8) and at most
+``SHA_DEVICE_MAX_BYTES`` bytes in all (:meth:`CudaBackend.sha_on_device`),
+a forest of trees of one uniform shape, each of at least 8 leaves, of at
+least ``MERKLE_DEVICE_MIN_LEAVES`` leaves and at most
+``MERKLE_DEVICE_MAX_BYTES`` value bytes in all (:meth:`forest_on_device`),
+and a codec product (the device codec asks per product, :meth:`gf_rule`)
 of at least ``GF8_DEVICE_MIN`` / ``GF16_DEVICE_MIN`` symbol products
 m·k·columns.  Below them the native host runs, as on ``CpuBackend``; a
 codec without parity is the host codec.
@@ -48,6 +51,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..crypto import threshold as T
@@ -65,11 +69,38 @@ RBC_MIN_ITEMS = 8
 
 
 class _DeviceMerkleTree(MerkleTree):
-    """MerkleTree whose levels were hashed on the device (same layout)."""
+    """MerkleTree whose rows were hashed on the device: one tree's slice of a
+    forest's host buffer (``rows``, R·32 bytes in ``MerkleTree.levels``'
+    order).  ``values`` and ``levels`` are made on first read, and
+    ``root_hash`` reads only the root's 32 bytes."""
 
-    def __init__(self, values: List[bytes], levels: List[List[bytes]]):
-        self.values = list(values)
-        self.levels = levels
+    def __init__(self, values, rows: np.ndarray, n_leaves: int):
+        self._values, self._rows, self._n = values, rows, n_leaves
+        self._levels: Optional[List[List[bytes]]] = None
+
+    @property
+    def values(self) -> List[bytes]:
+        if not isinstance(self._values, list):  # a [n, len] uint8 array
+            self._values = [row.tobytes() for row in self._values]
+        return self._values
+
+    @property
+    def levels(self) -> List[List[bytes]]:
+        if self._levels is None:
+            self._levels = SH.split_levels(self._rows.tobytes(), self._n)
+        return self._levels
+
+    @property
+    def root_hash(self) -> bytes:
+        return self._rows[-32:].tobytes()
+
+    def levels_equal(self, levels: List[List[bytes]]) -> bool:
+        """``levels == self.levels`` for the levels of a ``MerkleTree``
+        (32-byte digests), compared as bytes against this tree's rows,
+        without making its digests into objects: the same verdict, since
+        equal level sizes split equal bytes into equal digests."""
+        return ([len(level) for level in levels] == SH.level_sizes(self._n)
+                and b"".join(b"".join(level) for level in levels) == self._rows.tobytes())
 
 
 class CudaBackend(CpuBackend):
@@ -86,23 +117,24 @@ class CudaBackend(CpuBackend):
     G1_DEVICE_MIN = 1 << 12
     G1_PRODUCT_DEVICE_MIN = 1 << 12
 
-    # The reliable-broadcast plane's rules (the module docstring): the
-    # values that scripts/torch_rbc_band.py printed, the least total time
-    # over its grid (ties to the host), on an H100 80GB HBM3 at 700 W
-    # (PERF.md §5; card / host ms).  A batch of messages goes to the card
-    # from 256 messages up to 4 MiB in all (1,024 × 11 B 0.47 / 0.58;
-    # 4,096 × 1,024 B 5.57 / 9.18; past it the host's copies and padding
-    # cost the card more than the hashing: 4,096 × 4,096 B 41.6 / 22.7,
-    # 1,024 × 47,672 B 109.5 / 99.5); a tree from 1,024 leaves up to 1 MiB
-    # (1,024 × 2 B 1.23 / 1.53; 1,024 × 47,663 B 95.7 / 82.9); a GF(2^8)
-    # product from 2^21 symbol products (the 1 MB broadcast's parity, 44 M:
-    # 0.92 / 3.51); a GF(2^16) product from 2^14 (the card at every shape
-    # measured: the N = 1024 epoch's parity, 227 M, 1.10 / 163.1; its dead
-    # rows, 17,100, 0.36 / 2.05).
+    # The reliable-broadcast plane's rules (the module docstring): the values
+    # that scripts/torch_rbc_band.py printed, the least total time over its
+    # grid (ties to the host), on an H100 80GB HBM3 at 700 W (PERF.md §5;
+    # card / host ms, as a caller sees them).  A batch of messages goes to
+    # the card from 256 messages up to 4 MiB in all (1,024 × 11 B 0.47 /
+    # 0.58; past a few MiB the host's copies and padding cost the card more
+    # than the hashing: 4,096 × 4,096 B 41.6 / 22.7); a forest of trees from
+    # 64 leaves in all up to 64 MiB, the grid's largest (1 × 64 × 2 B 0.14 /
+    # 0.12, one 1,024-leaf tree 0.17 / 1.76, the N = 1024 epoch's 974 trees of
+    # 1,024 2-byte leaves 30.3 / 1,810); a GF(2^8) product from 2^21 symbol
+    # products (the 1 MB broadcast's parity, 44 M: 0.72 / 3.30); a GF(2^16)
+    # product from 2^14 (the card at every shape measured: the N = 1024
+    # epoch's parity, 227 M, 0.87 / 111.7; a proposer's dead rows, 17,100,
+    # 0.17 / 1.91).
     SHA_DEVICE_MIN_ITEMS = 1 << 8
     SHA_DEVICE_MAX_BYTES = 1 << 22
-    MERKLE_DEVICE_MIN_LEAVES = 1 << 10
-    MERKLE_DEVICE_MAX_BYTES = 1 << 20
+    MERKLE_DEVICE_MIN_LEAVES = 1 << 6
+    MERKLE_DEVICE_MAX_BYTES = 1 << 26
     GF8_DEVICE_MIN = 1 << 21
     GF16_DEVICE_MIN = 1 << 14
     # every rule opened as far as it goes (chip_smoke.py's forced backends)
@@ -144,10 +176,14 @@ class CudaBackend(CpuBackend):
         return (self._uniform(items, self.SHA_DEVICE_MIN_ITEMS)
                 and len(items) * len(items[0]) <= self.SHA_DEVICE_MAX_BYTES)
 
-    def tree_on_device(self, values: Sequence[bytes]) -> bool:
-        """Whether the size rules send the tree of ``values`` to the card."""
-        return (self._uniform(values, self.MERKLE_DEVICE_MIN_LEAVES)
-                and len(values) * len(values[0]) <= self.MERKLE_DEVICE_MAX_BYTES)
+    def forest_on_device(self, trees: int, leaves: int, leaf_bytes: int) -> bool:
+        """Whether the size rules send a forest of ``trees`` trees of
+        ``leaves`` leaves of ``leaf_bytes`` bytes each to the card: at least
+        8 leaves a tree, ``MERKLE_DEVICE_MIN_LEAVES`` leaves and at most
+        ``MERKLE_DEVICE_MAX_BYTES`` value bytes in all."""
+        total = trees * leaves
+        return (trees >= 1 and leaves >= RBC_MIN_ITEMS and total >= self.MERKLE_DEVICE_MIN_LEAVES
+                and total * leaf_bytes <= self.MERKLE_DEVICE_MAX_BYTES)
 
     def gf_rule(self, minimum: str) -> gf256.Rule:
         """The device codecs' rule: a product of m·k·columns symbol
@@ -161,10 +197,33 @@ class CudaBackend(CpuBackend):
         return SH.sha256_many(items, self.device)
 
     def merkle_tree(self, values: List[bytes]) -> MerkleTree:
-        vals = list(values)
-        if not self.tree_on_device(vals):
-            return MerkleTree(vals)
-        return _DeviceMerkleTree(vals, SH.merkle_levels_device(vals, self.device))
+        return self._trees([list(values)], False)[0]
+
+    def merkle_trees(self, groups, roots_only: bool = False) -> list:
+        """A tree per group of values (a sequence of byte-value lists, or a
+        ``[T, n, len]`` uint8 array, a tree a row): one ``merkle_forest``
+        launch for the whole batch where the trees have one shape and the
+        size rules send it to the card (:meth:`forest_on_device`), the
+        native host tree after tree otherwise.  With ``roots_only`` the
+        roots (the card copies back nothing else)."""
+        return self._trees(groups, roots_only)
+
+    def _trees(self, groups, roots_only: bool) -> list:
+        if not isinstance(groups, np.ndarray):
+            groups = [list(g) for g in groups]
+        shape = SH.forest_shape(groups)
+        if shape is None or not self.forest_on_device(*shape):
+            return CpuBackend.merkle_trees(self, groups, roots_only)
+        T, n, ln = shape
+        if isinstance(groups, np.ndarray):
+            arr = groups
+        else:
+            arr = np.frombuffer(b"".join(b"".join(g) for g in groups), dtype=np.uint8)
+            arr = arr.reshape(T, n, ln)
+        raw = SH.merkle_forest_device(arr, self.device, roots_only)
+        if roots_only:
+            return [raw[t].tobytes() for t in range(T)]
+        return [_DeviceMerkleTree(groups[t], raw[t], n) for t in range(T)]
 
     def rs_codec(self, data_shards: int, parity_shards: int):
         if parity_shards == 0:

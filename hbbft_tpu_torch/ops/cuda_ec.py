@@ -47,13 +47,13 @@ from .ec import PointKernel, g1_kernel, g2_kernel
 
 # every kernel of the port, ``ops/fr.py``'s ``fr_matmul`` and ``fr_planes``,
 # ``ops/cosim_step.py``'s ``cosim_hist`` and ``cosim_step``, ``ops/sha256.py``'s
-# ``sha256`` and ``merkle_level`` and ``ops/gf256.py``'s ``gf_matmul`` included
+# ``sha256`` and ``merkle_forest`` and ``ops/gf256.py``'s ``gf_matmul`` included
 LAUNCHES: Dict[str, int] = {
     "win_g1": 0, "win_g2": 0, "scan_g1": 0, "ring_permute": 0, "fr_matmul": 0, "fr_planes": 0,
-    "cosim_hist": 0, "cosim_step": 0, "sha256": 0, "merkle_level": 0, "gf_matmul": 0,
+    "cosim_hist": 0, "cosim_step": 0, "sha256": 0, "merkle_forest": 0, "gf_matmul": 0,
 }
 # the reliable-broadcast plane's kernels
-RBC_KERNELS = ("sha256", "merkle_level", "gf_matmul")
+RBC_KERNELS = ("sha256", "merkle_forest", "gf_matmul")
 
 # point shape each kernel takes after the leading K
 _POINT_SHAPE: Dict[str, Tuple[int, ...]] = {

@@ -13,11 +13,13 @@ input bits, with the parity of each sum as the output's bits.
   torch: unpack, matmul, ``& 1``, pack.  PyTorch has no integer matmul
   on the card, so the sums (at most W·k) are taken in float64, exact.
 - :func:`gf_matmul` is the kernel's wrapper (``csrc/gf_matmul.cu``,
-  ``W`` = 8 or 16 from the matrix's dtype): it XORs the same expansion
-  directly, from the W constants ``M[i, j]·2^b`` of each entry (the
-  columns of the binary block), built from the port's ``crypto/rs.py``
-  tables and kept on the device per matrix.  On a CUDA tensor it
-  launches (or raises — never a fallback) and counts
+  ``W`` = 8 or 16 from the matrix's dtype): the same product on the int8
+  tensor cores, the binary expansion as u8 bytes of 0 or 1 built on the
+  card from the W constants ``M[i, j]·2^b`` of each entry (the columns of
+  the binary block, from the port's ``crypto/rs.py`` tables) and kept
+  there per matrix in the kernel's operand order (:func:`abin_tiles`),
+  the data's bits made inside the kernel.  On a CUDA tensor it launches
+  (or raises — never a fallback) and counts
   ``cuda_ec.LAUNCHES["gf_matmul"]``; on a CPU tensor it runs the plain
   version.
 
@@ -146,16 +148,41 @@ def const_table(mat: np.ndarray) -> np.ndarray:
     return np.where(m[..., None] == 0, 0, prod).astype(mat.dtype)
 
 
-def _device_table(key: Tuple[int, int, bytes], W: int, device: str) -> torch.Tensor:
+# the kernel's tile: 256 rows of the binary expansion, 32 bits of k a step
+TILE_ROWS, TILE_K = 256, 32
+
+
+def abin_tiles(table: torch.Tensor, W: int) -> torch.Tensor:
+    """The binary expansion ``A_bin`` of a constant matrix as the kernel
+    reads it, from its ``[m, k, W]`` constants ``M[i, j]·2^b``
+    (:func:`const_table`, uint8 or int16 words) on their device: row
+    W·i + r, column W·j + b holds bit r of ``M[i, j]·2^b`` (a 0 or 1 byte),
+    zero padded to whole tiles and laid out [row tile][k-step][row / 8]
+    [k / 16][row % 8][k % 16] — ``[⌈W·m/256⌉, ⌈W·k/32⌉, 8192]`` uint8, one
+    k-step of a tile 8 KB of wgmma's K-major core matrices."""
+    m, k, _ = table.shape
+    t = table.to(torch.int32) & ((1 << W) - 1)
+    MT, KS = -(-W * m // TILE_ROWS), -(-W * k // TILE_K)
+    a = torch.zeros((MT * TILE_ROWS, KS * TILE_K), dtype=torch.uint8, device=table.device)
+    blocks = a[: W * m, : W * k].view(m, W, k, W)  # [i, r, j, b]
+    for r in range(W):
+        blocks[:, r] = ((t >> r) & 1).to(torch.uint8)
+    tiles = a.view(MT, TILE_ROWS // 8, 8, KS, 2, 16).permute(0, 3, 1, 4, 2, 5)
+    return tiles.contiguous().view(MT, KS, TILE_ROWS * TILE_K)
+
+
+def _device_abin(key: Tuple[int, int, bytes], W: int, device: str) -> torch.Tensor:
     dtype = np.uint8 if W == 8 else np.uint16
     mat = np.frombuffer(key[2], dtype=dtype).reshape(key[0], key[1])
     table = const_table(mat)
-    return torch.from_numpy(table if W == 8 else table.view(np.int16)).to(device)
+    table = torch.from_numpy(table if W == 8 else table.view(np.int16)).to(device)
+    return abin_tiles(table, W)
 
 
-# decode matrices vary per erasure pattern; the N = 1024 parity table is 7.5 MB
-_table8 = functools.lru_cache(maxsize=256)(functools.partial(_device_table, W=8))
-_table16 = functools.lru_cache(maxsize=8)(functools.partial(_device_table, W=16))
+# decode matrices vary per erasure pattern; the N = 1024 parity's expansion
+# is 60 MB
+_abin8 = functools.lru_cache(maxsize=256)(functools.partial(_device_abin, W=8))
+_abin16 = functools.lru_cache(maxsize=8)(functools.partial(_device_abin, W=16))
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +233,7 @@ def gf_matmul_plain(mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = kernels.load("gf_matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gf_matmul_launch.argtypes = [i, p, p, p, i, i, i, p]
+    lib.gf_matmul_launch.argtypes = [i, p, p, i, p, i, i, i, p]
     lib.gf_matmul_launch.restype = ctypes.c_int
     lib.gf_matmul_error_string.argtypes = [ctypes.c_int]
     lib.gf_matmul_error_string.restype = ctypes.c_char_p
@@ -229,30 +256,28 @@ def gf_matmul(mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
     n = data.shape[1]
     if m == 0 or k == 0 or n == 0:
         return torch.zeros((m, n), dtype=data.dtype, device=data.device)
-    if m > 8 * 65535:
-        raise ValueError(f"gf_matmul takes at most {8 * 65535} matrix rows, got {m}")
-    row_bytes = n * W // 8
-    words = -(-row_bytes // 4)
-    xb = data.contiguous().view(torch.uint8)
-    if words * 4 != row_bytes:
-        xb = torch.nn.functional.pad(xb, (0, words * 4 - row_bytes))
-    x = xb.view(torch.int32)
     key = _key(mat)
     dev = str(data.device)
-    table = _table8(key, device=dev) if W == 8 else _table16(key, device=dev)
-    y = torch.empty((m, words), dtype=torch.int32, device=data.device)
+    abin = _abin8(key, device=dev) if W == 8 else _abin16(key, device=dev)
+    # the kernel copies each row's slice of a step with the bulk copy engine:
+    # rows 16-byte aligned, their stride a multiple of 16 bytes (the device
+    # codecs' host arrays arrive so, _on); other data is padded here
+    row_bytes = n * W // 8
+    xs = data.stride(0) * (W // 8)
+    x = data
+    if data.stride(1) != 1 or xs % 16 or xs < row_bytes or data.data_ptr() % 16:
+        xs = -(-row_bytes // 16) * 16
+        x = torch.nn.functional.pad(data.contiguous().view(torch.uint8), (0, xs - row_bytes))
+    y = torch.empty((m, n), dtype=data.dtype, device=data.device)
     lib = _lib()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = lib.gf_matmul_launch(W, table.data_ptr(), x.data_ptr(), y.data_ptr(), m, k, words,
+        rc = lib.gf_matmul_launch(W, abin.data_ptr(), x.data_ptr(), xs, y.data_ptr(), m, k, n,
                                   stream)
     if rc != 0:
         raise RuntimeError(f"gf_matmul launch failed: {lib.gf_matmul_error_string(rc).decode()} ({rc})")
     LAUNCHES["gf_matmul"] += 1
-    out = y.view(torch.uint8)
-    if words * 4 != row_bytes:
-        out = out[:, :row_bytes].contiguous()
-    return out if W == 8 else out.view(torch.int16)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -261,12 +286,18 @@ def gf_matmul(mat: np.ndarray, data: torch.Tensor) -> torch.Tensor:
 
 
 def _on(data, dtype, device: DeviceLike) -> torch.Tensor:
+    """``data`` as a tensor on ``device``: a host array goes over as a
+    view of rows padded to 16 bytes, as ``gf_matmul`` takes them."""
     if isinstance(data, torch.Tensor):
         return data
-    arr = np.ascontiguousarray(data, dtype=dtype)
+    arr = np.asarray(data, dtype=dtype)
+    k, n = arr.shape
+    width = -(-n * arr.itemsize // 16) * 16 // arr.itemsize
+    buf = np.zeros((k, width), dtype=dtype)
+    buf[:, :n] = arr
     if dtype == np.uint16:
-        arr = arr.view(np.int16)
-    return torch.from_numpy(arr).to(resolve_device(device))
+        buf = buf.view(np.int16)
+    return torch.from_numpy(buf).to(resolve_device(device))[:, :n]
 
 
 def gf_matmul_device(mat: np.ndarray, data, device: DeviceLike = None) -> torch.Tensor:

@@ -9,9 +9,11 @@ takes its arithmetic from ``csrc/fr_words.cuh``; ``cosim_step.cu`` (the
 packed co-simulation's step, ``ops/cosim_step.py``) holds the
 ``cosim_step`` kernel (the whole step in one cooperative launch, or a
 mesh shard's decision) and the ``cosim_hist`` kernel; ``sha256.cu`` (the
-reliable broadcast's hashing, ``ops/sha256.py``) holds the ``sha256`` and
-``merkle_level`` kernels and ``gf_matmul.cu`` (its Reed–Solomon products,
-``ops/gf256.py``) the ``gf_matmul`` kernel for GF(2^8) and GF(2^16).  A kernel is compiled
+reliable broadcast's hashing, ``ops/sha256.py``) holds the ``sha256``
+kernel and ``merkle.cu`` the ``merkle_forest`` kernel, both over the
+compression of ``csrc/sha256.cuh``; ``gf_matmul.cu`` (its Reed–Solomon
+products, ``ops/gf256.py``) holds the ``gf_matmul`` kernel for GF(2^8)
+and GF(2^16) on the int8 tensor cores.  A kernel is compiled
 on first use by ``nvcc`` for Hopper (``-gencode
 arch=compute_90a,code=sm_90a``) into a shared library under
 ``build/hbbft_tpu_torch/`` at the repo root, and loaded with ``ctypes``.  The library's file name carries a hash of the source,
@@ -46,7 +48,7 @@ SOURCES: Dict[str, pathlib.Path] = {
     name: CSRC / f"{name}.cu"
     for name in (
         "win_g1", "win_g2", "scan_g1", "ring_permute", "fr_matmul", "cosim_step", "sha256",
-        "gf_matmul",
+        "merkle", "gf_matmul",
     )
 }
 

@@ -1,4 +1,4 @@
-"""Batched SHA-256 and Merkle levels: the ``sha256`` and ``merkle_level``
+"""Batched SHA-256 and Merkle forests: the ``sha256`` and ``merkle_forest``
 kernels and their plain PyTorch versions.
 
 The port of ``hbbft_tpu/ops/sha256_jax.py`` (an XLA program, not a
@@ -10,32 +10,36 @@ is sequential within a message, so the parallelism is across messages.
 - :func:`sha256` — ``[B, nblocks, 16]`` big-endian words (padded by
   :func:`pad_messages`) → ``[B, 8]`` digests; ``csrc/sha256.cu``'s
   ``sha256_kernel`` runs one thread a message, block after block;
-- :func:`merkle_level` — a level's ``[2p, 8]`` digests → the ``[p, 8]``
-  parents, node = SHA-256(0x01 ‖ l ‖ r) hashed straight from the two
-  children's words with its fixed second padding block
-  (``merkle_level_kernel``, one thread a parent).
+- :func:`merkle_forest` — the raw leaf values of T trees, ``[T, n, len]``
+  bytes, → every tree's levels ``[T, R, 8]`` (R = Σ :func:`level_sizes`)
+  or only its root ``[T, 8]``; ``csrc/merkle.cu``'s
+  ``merkle_forest_kernel`` builds each tree in one block (leaf messages
+  and padding made in registers, the levels in shared memory), the whole
+  forest in one launch.  Both kernels share the compression of
+  ``csrc/sha256.cuh``.
 
 Tensors hold the 32-bit words as int32 (their bit patterns; torch's
 uint32 has few operations) and :func:`sha256_device` also takes and
 gives uint32.  Each wrapper, on a CUDA tensor, launches its kernel on
 the current stream (or raises — never a fallback) and counts it in
 ``cuda_ec.LAUNCHES``; on a CPU tensor it runs the plain version, the
-reference's compression as torch ops on int64 lanes masked to 32 bits.
+reference's compression as torch ops on int64 lanes masked to 32 bits
+(:func:`merkle_forest_plain` builds the leaf messages as torch ops and
+each level with :func:`merkle_level_plain`).
 
-:func:`merkle_levels_device` keeps every level on the device: one
-``sha256`` launch for the leaves, one ``merkle_level`` launch a level
-into one buffer, and one copy of all levels to the host at the end.
-The reference copies each level back and forth; the bytes are the same.
 Hashing matches ``crypto.merkle.MerkleTree`` byte for byte: leaf =
 SHA-256(0x00 ‖ index₈ ‖ value), node = SHA-256(0x01 ‖ l ‖ r), and an odd
-level repeats its last hash, which lands in that level's list.
+level repeats its last hash, which lands in that level's list.  The
+reference copies each level back and forth; here a forest's rows come
+back to the host in one copy (:func:`merkle_forest_device`), and
+:func:`merkle_levels_device`, the reference's name, is a one-tree forest.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -103,17 +107,6 @@ def pad_messages(msgs: Sequence[bytes]) -> np.ndarray:
     assert all(len(m) == n for m in msgs), "pad_messages needs uniform length"
     buf = _padded(len(msgs), n)
     buf[:, :n] = np.frombuffer(b"".join(msgs), dtype=np.uint8).reshape(len(msgs), n)
-    return _be_words(buf)
-
-
-def _leaf_blocks(values: Sequence[bytes]) -> np.ndarray:
-    """``pad_messages`` of the leaf messages 0x00 ‖ index₈ ‖ value of
-    uniform-length ``values``, built without joining each message."""
-    n = len(values[0])
-    buf = _padded(len(values), 9 + n)
-    idx = np.arange(len(values), dtype=">u8").view(np.uint8).reshape(-1, 8)
-    buf[:, 1:9] = idx
-    buf[:, 9 : 9 + n] = np.frombuffer(b"".join(values), dtype=np.uint8).reshape(-1, n)
     return _be_words(buf)
 
 
@@ -198,9 +191,63 @@ def _node_words(level: torch.Tensor) -> torch.Tensor:
 
 
 def merkle_level_plain(level: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version of ``merkle_level``: [2p, 8] int32 digest
-    words → [p, 8] parents, SHA-256(0x01 ‖ l ‖ r)."""
+    """One Merkle level on torch ops, the building block of
+    :func:`merkle_forest_plain`: [2p, 8] int32 digest words (an odd
+    level's last hash already repeated) → [p, 8] parents,
+    SHA-256(0x01 ‖ l ‖ r)."""
     return sha256_plain(_to_int32(_node_words(level)))
+
+
+def _leaf_words(values: torch.Tensor) -> torch.Tensor:
+    """[T, n, len] uint8 leaf values → [T·n, nblocks, 16] int32 padded
+    words of the leaf messages 0x00 ‖ index₈ ‖ value, the index counted
+    within each tree (the card builds the same messages in registers)."""
+    T, n, ln = values.shape
+    mlen = 9 + ln
+    nblocks = (mlen + 72) // 64  # the message, 0x80 and 8 length bytes
+    dev = values.device
+    buf = torch.zeros((T * n, nblocks * 64), dtype=torch.int64, device=dev)
+    idx = torch.arange(n, dtype=torch.int64, device=dev).repeat(T)
+    for q in range(8):
+        buf[:, 1 + q] = (idx >> (8 * (7 - q))) & 0xFF
+    buf[:, 9:mlen] = values.reshape(T * n, ln).to(torch.int64)
+    buf[:, mlen] = 0x80
+    for q in range(8):
+        buf[:, nblocks * 64 - 8 + q] = ((8 * mlen) >> (8 * (7 - q))) & 0xFF
+    b = buf.reshape(T * n, nblocks * 16, 4)
+    words = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
+    return _to_int32(words).reshape(T * n, nblocks, 16)
+
+
+def _forest_values(values: torch.Tensor) -> torch.Tensor:
+    if values.dtype != torch.uint8 or values.dim() != 3 or values.shape[1] < 1:
+        raise ValueError(
+            f"a forest takes [T, n ≥ 1, len] uint8 leaf values, got {values.dtype} "
+            f"{tuple(values.shape)}")
+    return values
+
+
+def merkle_forest_plain(values: torch.Tensor, roots_only: bool = False,
+                        sha: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
+    """The plain PyTorch version of ``merkle_forest``: T trees' leaf values
+    [T, n, len] uint8 → [T, R, 8] int32 rows, every level of each tree
+    leaves first (R = Σ level_sizes(n), an odd level's repeated last hash
+    among its rows), or with ``roots_only`` [T, 8], each tree's root.
+    ``sha`` hashes the padded leaf words (:func:`sha256_plain` by
+    default; chip_smoke.py passes a replay of it)."""
+    values = _forest_values(values)
+    T, n, _ = values.shape
+    level = (sha or sha256_plain)(_leaf_words(values)).reshape(T, n, 8)
+    rows = [level]
+    while level.shape[1] > 1:
+        if level.shape[1] % 2:
+            level = torch.cat([level, level[:, -1:]], dim=1)
+            rows[-1] = level
+        level = merkle_level_plain(level.reshape(-1, 8)).reshape(T, -1, 8)
+        rows.append(level)
+    if roots_only:
+        return level[:, 0].contiguous()
+    return torch.cat(rows, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -214,10 +261,21 @@ def _lib() -> ctypes.CDLL:
     p = ctypes.c_void_p
     lib.sha256_launch.argtypes = [p, p, ctypes.c_int, ctypes.c_int, p]
     lib.sha256_launch.restype = ctypes.c_int
-    lib.merkle_level_launch.argtypes = [p, p, ctypes.c_int, p]
-    lib.merkle_level_launch.restype = ctypes.c_int
     lib.sha256_error_string.argtypes = [ctypes.c_int]
     lib.sha256_error_string.restype = ctypes.c_char_p
+    lib.error_string = lib.sha256_error_string
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _merkle_lib() -> ctypes.CDLL:
+    lib = kernels.load("merkle")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.merkle_forest_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.merkle_forest_launch.restype = ctypes.c_int
+    lib.merkle_error_string.argtypes = [ctypes.c_int]
+    lib.merkle_error_string.restype = ctypes.c_char_p
+    lib.error_string = lib.merkle_error_string
     return lib
 
 
@@ -229,11 +287,10 @@ def _words(t: torch.Tensor, what: str) -> torch.Tensor:
     return t
 
 
-def _launch(name: str, call) -> None:
-    lib = _lib()
+def _launch(lib: ctypes.CDLL, name: str, call) -> None:
     rc = call(lib)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.sha256_error_string(rc).decode()} ({rc})")
+        raise RuntimeError(f"{name} launch failed: {lib.error_string(rc).decode()} ({rc})")
     LAUNCHES[name] += 1
 
 
@@ -270,33 +327,41 @@ def sha256(blocks: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Te
     blocks = _aligned(blocks)
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream(blocks.device).cuda_stream
-        _launch("sha256", lambda lib: lib.sha256_launch(
+        _launch(_lib(), "sha256", lambda lib: lib.sha256_launch(
             blocks.data_ptr(), dst.data_ptr(), B, nblocks, stream))
     return dst
 
 
-def merkle_level(level: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """A Merkle level's [2p, 8] int32 digest words (an even count; the
-    caller repeats an odd level's last hash) → its [p, 8] parents (into
-    ``out`` when given)."""
-    level = _words(level, "merkle_level")
-    if level.dim() != 2 or level.shape[1] != 8 or level.shape[0] % 2:
-        raise ValueError(f"merkle_level takes [2p, 8] words, got {tuple(level.shape)}")
-    p = level.shape[0] // 2
-    if level.device.type == "cpu":
-        res = merkle_level_plain(level)
-        return res if out is None else _out(out, p, level, "merkle_level").copy_(res)
-    if level.device.type != "cuda":
-        raise ValueError(f"merkle_level runs on cuda or cpu tensors, not {level.device}")
-    dst = _out(out, p, level, "merkle_level")
-    if p == 0:
-        return dst
-    level = _aligned(level)
-    with torch.cuda.device(level.device):
-        stream = torch.cuda.current_stream(level.device).cuda_stream
-        _launch("merkle_level", lambda lib: lib.merkle_level_launch(
-            level.data_ptr(), dst.data_ptr(), p, stream))
-    return dst
+# csrc/merkle.cu's FOREST_SMEM_MAX: a tree of more rows·32 bytes keeps its
+# rows in global memory
+FOREST_SMEM_BYTES = 232_448
+
+
+def merkle_forest(values: torch.Tensor, roots_only: bool = False) -> torch.Tensor:
+    """T Merkle trees in one launch: leaf values [T, n, len] uint8 →
+    [T, R, 8] int32 rows, every level (R = Σ level_sizes(n)), or with
+    ``roots_only`` the [T, 8] roots."""
+    values = _forest_values(values)
+    if values.device.type == "cpu":
+        return merkle_forest_plain(values, roots_only)
+    if values.device.type != "cuda":
+        raise ValueError(f"merkle_forest runs on cuda or cpu tensors, not {values.device}")
+    T, n, ln = values.shape
+    rows = sum(level_sizes(n))
+    dev = values.device
+    out = torch.empty((T, 8) if roots_only else (T, rows, 8), dtype=torch.int32, device=dev)
+    if T == 0:
+        return out
+    scratch = None
+    if roots_only and rows * 32 > FOREST_SMEM_BYTES:
+        scratch = torch.empty((T, rows, 8), dtype=torch.int32, device=dev)
+    values = values.contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(_merkle_lib(), "merkle_forest", lambda lib: lib.merkle_forest_launch(
+            values.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            T, n, ln, rows, int(roots_only), stream))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -343,24 +408,57 @@ def level_sizes(n_leaves: int) -> List[int]:
         n = rows // 2
 
 
+def forest_shape(groups) -> Optional[Tuple[int, int, int]]:
+    """(T, n, len) of a batch of trees whose T groups all hold n ≥ 1 values
+    of len bytes (a sequence of byte-value lists, or a [T, n, len] uint8
+    array), else None: a forest's trees share one shape."""
+    if isinstance(groups, np.ndarray):
+        T, n, ln = groups.shape
+        return (T, n, ln) if T and n else None
+    groups = list(groups)
+    if not groups or not groups[0]:
+        return None
+    n, ln = len(groups[0]), len(groups[0][0])
+    if all(len(g) == n and all(len(v) == ln for v in g) for g in groups):
+        return len(groups), n, ln
+    return None
+
+
+def merkle_forest_device(values, device: DeviceLike = None, roots_only: bool = False) -> np.ndarray:
+    """T trees of n uniform leaves, ``values`` [T, n, len] uint8 (a host
+    array, sent to ``device``, the card by default, or a tensor where it
+    lies), built in one ``merkle_forest`` launch and copied to the host
+    once: [T, R·32] digest bytes, each tree's rows in order (leaves first),
+    or with ``roots_only`` [T, 32], the roots."""
+    t = values
+    if not isinstance(t, torch.Tensor):
+        arr = np.ascontiguousarray(values, dtype=np.uint8)
+        t = torch.from_numpy(arr if arr.flags.writeable else arr.copy()).to(resolve_device(device))
+    words = merkle_forest(t, roots_only)
+    # the words' big-endian bytes, swapped where they lie (on the card, not
+    # by the host after the copy)
+    raw = words.view(torch.uint8).reshape(*words.shape, 4).flip(-1).contiguous()
+    return raw.cpu().numpy().reshape(t.shape[0], -1)
+
+
+def split_levels(raw: bytes, n_leaves: int) -> List[List[bytes]]:
+    """One tree's rows (``R·32`` bytes, as :func:`merkle_forest_device`
+    gives them) → its levels, ``MerkleTree.levels``' lists."""
+    levels, pos = [], 0
+    for rows in level_sizes(n_leaves):
+        levels.append([raw[32 * (pos + i) : 32 * (pos + i + 1)] for i in range(rows)])
+        pos += rows
+    return levels
+
+
 def merkle_levels_device(leaves: Sequence[bytes], device: DeviceLike = None) -> List[List[bytes]]:
     """All levels of the Merkle tree (leaf digests first) over
-    uniform-length ``leaves``, every level hashed as one batch on the
-    device and kept there: one ``sha256`` launch for the leaves, one
-    ``merkle_level`` launch a level, one copy to the host at the end."""
+    uniform-length ``leaves``: a forest of one tree, one ``merkle_forest``
+    launch and one copy to the host."""
     if not leaves:
         raise ValueError("empty Merkle tree")
-    dev = resolve_device(device)
-    sizes = level_sizes(len(leaves))
-    offs = np.concatenate([[0], np.cumsum(sizes)]).tolist()
-    buf = torch.empty((offs[-1], 8), dtype=torch.int32, device=dev)
-    n = len(leaves)
-    sha256(_to_device(_leaf_blocks(leaves), dev), out=buf[:n])
-    for lvl, rows in enumerate(sizes[:-1]):
-        lo = offs[lvl]
-        if rows != n:  # odd: repeat the last hash
-            buf[lo + n] = buf[lo + n - 1]
-        n = rows // 2
-        merkle_level(buf[lo : lo + rows], out=buf[offs[lvl + 1] : offs[lvl + 1] + n])
-    flat = digests_to_bytes(buf)
-    return [flat[offs[i] : offs[i] + rows] for i, rows in enumerate(sizes)]
+    n, ln = len(leaves), len(leaves[0])
+    if any(len(v) != ln for v in leaves):
+        raise ValueError("merkle_levels_device needs uniform leaves")
+    arr = np.frombuffer(b"".join(leaves), dtype=np.uint8).reshape(1, n, ln)
+    return split_levels(merkle_forest_device(arr, device)[0].tobytes(), n)

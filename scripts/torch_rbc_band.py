@@ -2,30 +2,36 @@
 """The reliable-broadcast plane's routing band: the card against the
 native host, by size.
 
-``CudaBackend`` sends a SHA-256 batch, a Merkle tree or a Reed–Solomon
-product to the card only at or above its size rules
+``CudaBackend`` sends a SHA-256 batch, a forest of Merkle trees or a
+Reed–Solomon product to the card only at or above its size rules
 (``ops/backend_cuda.py``: ``SHA_DEVICE_MIN_ITEMS`` / ``_MAX_BYTES``,
 ``MERKLE_DEVICE_MIN_LEAVES`` / ``_MAX_BYTES``, ``GF8_DEVICE_MIN``,
 ``GF16_DEVICE_MIN``).  This script measures both sides as a caller sees
 them (host bytes in, host bytes out, the card's copies included) after
-building the native library and the ``sha256`` and ``gf_matmul`` kernels:
+building the native library and the ``sha256``, ``merkle`` and
+``gf_matmul`` kernels:
 
 1. ``sha256_many``: native ``NT.sha256_many`` against
    ``ops.sha256.sha256_many`` on the card, by batch count × message bytes;
-2. Merkle trees: native ``MerkleTree`` against ``merkle_levels_device``,
-   by leaves × leaf bytes;
+2. Merkle forests: ``merkle_trees`` of a ``[T, n, len]`` array on
+   ``CpuBackend`` (native ``MerkleTree`` tree after tree) against a
+   ``CudaBackend`` with its rules open (one ``merkle_forest`` launch, the
+   rows copied back), by trees × leaves × leaf bytes (the N = 1024 epoch's
+   974 and 1,948 trees of 1,024 2-byte leaves, the 1 MB broadcast's 64
+   leaves of 47,663 bytes, single trees and a grid);
 3. codec products: native ``RS._matmul`` / ``_matmul16`` against the
    device codecs' product (``gf_matmul_device`` / ``gf16_matmul_device``
    and the copy back), by ``m·k·columns``;
 
 at the shapes of ``chip_smoke.py``'s phase 7 (the 1 MB broadcast's
 leaves, trees, parity, decode and missing rows; the N = 1024 epoch's
-leaves, trees and products) and a grid around them.  Each time is the
+leaves, forests and products) and a grid around them.  Each time is the
 median of several calls.  For each rule it prints the values, among
 powers of two, that give the least total time over its grid when each
-point runs where the rule sends it (the SHA-256 and Merkle rules have a
-floor on the batch's messages or leaves and a ceiling on its bytes in
-all, the codec rules a floor on m·k·columns), and both sides' totals.  The JSON
+point runs where the rule sends it (the SHA-256 and forest rules have a
+floor on the batch's messages or the forest's leaves and a ceiling on
+its bytes in all, the codec rules a floor on m·k·columns), and both
+sides' totals.  The JSON
 also goes to ``chiprun_out/torch_rbc_band.json``; the last line is the
 card's name and power limit.  Run from the repo root on a CUDA host:
 ``python3 scripts/torch_rbc_band.py`` (``--reps`` calls a point).
@@ -48,8 +54,12 @@ import numpy as np  # noqa: E402
 
 SHA_COUNTS = (8, 16, 64, 256, 1024, 4096, 16384)
 SHA_BYTES = (11, 65, 256, 1024, 4096, 47_672)
-MERKLE_LEAVES = (8, 16, 64, 256, 1024)
-MERKLE_BYTES = (2, 64, 1024, 47_663)
+# (trees, leaves a tree, bytes a leaf)
+FORESTS = (
+    [(1, n, b) for n in (8, 16, 64, 256, 1024) for b in (2, 64, 1024, 47_663)]
+    + [(T, n, b) for T in (8, 64) for n in (8, 64, 1024) for b in (2, 1024)]
+    + [(974, 64, 2), (974, 1024, 2), (1948, 1024, 2)]
+)
 # (W, m, k, columns): the 1 MB broadcast (n = 64: 22 data, 42 parity
 # shards of 47,663 bytes), the N = 1024 epoch (342 data, 682 parity, 50
 # dead; 974 proposers' shards of L bytes, L/2 symbols each) and a grid
@@ -132,8 +142,7 @@ def main() -> int:
     if not NT.build() or not NT.available():
         print("torch_rbc_band: the native library did not build", file=sys.stderr)
         return 1
-    kernels.build("sha256")
-    kernels.build("gf_matmul")
+    kernels.build_all()
     dev = torch.device("cuda")
     gen = np.random.default_rng(0xBA)
     out = {"reps": args.reps}
@@ -156,20 +165,29 @@ def main() -> int:
     out["sha256"] = sha
     out["sha256_rule"] = best_rule(sha, ["items"], ["total"])
 
+    from hbbft_tpu_torch.crypto.backend import CpuBackend
+    from hbbft_tpu_torch.ops.backend_cuda import CudaBackend
+
+    host_be, card_be = CpuBackend(), CudaBackend()
+    for name, value in card_be.RBC_FLOOR.items():
+        setattr(card_be, name, value)
     merkle = []
-    for leaves in MERKLE_LEAVES:
-        for nbytes in MERKLE_BYTES:
-            if leaves * nbytes > 64 << 20:
-                continue
-            vals = [gen.integers(0, 256, size=nbytes, dtype=np.uint8).tobytes() for _ in range(leaves)]
-            if SH.merkle_levels_device(vals, dev) != MerkleTree(vals).levels:
-                raise SystemExit(f"torch_rbc_band: merkle differs at {leaves} × {nbytes}")
-            p = {"items": leaves, "bytes": nbytes, "total": leaves * nbytes,
-                 "host_s": median_s(lambda: MerkleTree(vals), args.reps),
-                 "card_s": median_s(lambda: SH.merkle_levels_device(vals, dev), args.reps)}
-            merkle.append(p)
-            print(f"merkle {leaves} × {nbytes} B: host {p['host_s'] * 1e3:.4f} ms, "
-                  f"card {p['card_s'] * 1e3:.4f} ms", flush=True)
+    for T, leaves, nbytes in FORESTS:
+        if T * leaves * nbytes > 64 << 20:
+            continue
+        arr = gen.integers(0, 256, size=(T, leaves, nbytes), dtype=np.uint8)
+        got = card_be.merkle_trees(arr)
+        want = host_be.merkle_trees(arr)
+        if [t.root_hash for t in got] != [t.root_hash for t in want] or got[-1].levels != want[-1].levels:
+            raise SystemExit(f"torch_rbc_band: the forest differs at {T} × {leaves} × {nbytes}")
+        reps = args.reps if T * leaves < 1 << 16 else 3
+        p = {"trees": T, "leaves": leaves, "bytes": nbytes, "items": T * leaves,
+             "total": T * leaves * nbytes,
+             "host_s": median_s(lambda: host_be.merkle_trees(arr), reps),
+             "card_s": median_s(lambda: card_be.merkle_trees(arr), reps)}
+        merkle.append(p)
+        print(f"forest {T} × {leaves} × {nbytes} B: host {p['host_s'] * 1e3:.4f} ms, "
+              f"card {p['card_s'] * 1e3:.4f} ms", flush=True)
     out["merkle"] = merkle
     out["merkle_rule"] = best_rule(merkle, ["items"], ["total"])
 

@@ -28,12 +28,13 @@ one launch of ``cosim_step`` and none of ``cosim_hist``, with the 4-shard
 mesh step equal to the one launch; so must the tail shapes n = 0, 1, 15,
 16, 17, 4,097 at Z = 1, 5, 257 (the mesh step called twice, reusing its
 scratch) and column views that are not 16-byte aligned; and the packed
-co-sim on the card must equal its CPU run.  ``sha256``, ``merkle_level``
-and ``gf_matmul`` (W = 8 and 16) must equal their plain versions byte for
-byte and ``hashlib`` / ``MerkleTree`` / the native products, with one
-launch a call (``merkle_levels_device``: one ``sha256`` and one
-``merkle_level`` a level), and a forced backend's broadcast must deliver
-the host run's messages.
+co-sim on the card must equal its CPU run.  ``sha256``, ``merkle_forest``
+(every level and roots only, a tree above the shared-memory limit too)
+and ``gf_matmul`` (W = 8 and 16, thin and one-column products too) must
+equal their plain versions byte for byte and ``hashlib`` / ``MerkleTree``
+/ the native products, with one launch a call (``merkle_levels_device``:
+a forest of one), and a forced backend's broadcast must deliver the host
+run's messages.
 """
 
 import random
@@ -538,7 +539,7 @@ def test_cosim_step_on_misaligned_views_matches_plain(dev, Z):
 
 
 # ---------------------------------------------------------------------------
-# The reliable-broadcast plane: sha256, merkle_level, gf_matmul
+# The reliable-broadcast plane: sha256, merkle_forest, gf_matmul
 # ---------------------------------------------------------------------------
 
 
@@ -586,13 +587,23 @@ def test_merkle_levels_on_the_card_match_tree(dev):
         cuda_ec.reset_launches()
         levels = SH.merkle_levels_device(vals, dev)
         assert levels == MerkleTree(vals).levels
-        assert cuda_ec.LAUNCHES["sha256"] == 1
-        assert cuda_ec.LAUNCHES["merkle_level"] == len(levels) - 1
-        for lvl in levels[:-1]:
-            words = torch.from_numpy(
-                np.frombuffer(b"".join(lvl), dtype=">u4").astype(np.uint32).view(np.int32)
-            ).reshape(-1, 8).to(dev)
-            _equal_bytes(SH.merkle_level(words), SH.merkle_level_plain(words))
+        assert cuda_ec.LAUNCHES["merkle_forest"] == 1 and cuda_ec.LAUNCHES["sha256"] == 0
+
+
+@pytest.mark.parametrize("T,n,length", [(974, 1024, 2), (3, 64, 47_663), (2, 4_097, 2),
+                                        (5, 11, 56), (7, 3, 0)])
+def test_merkle_forest_matches_plain(dev, T, n, length):
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops import sha256 as SH
+
+    gen = np.random.default_rng(T + n + length)
+    values = torch.from_numpy(gen.integers(0, 256, size=(T, n, length), dtype=np.uint8)).to(dev)
+    for roots_only in (False, True):
+        before = cuda_ec.LAUNCHES["merkle_forest"]
+        got = SH.merkle_forest(values, roots_only)
+        assert cuda_ec.LAUNCHES["merkle_forest"] == before + 1
+        _equal_bytes(got, SH.merkle_forest_plain(values, roots_only,
+                                                 sha=_smoke().sha256_plain_replayed))
 
 
 @pytest.mark.parametrize("W", [8, 16])
@@ -604,7 +615,8 @@ def test_gf_matmul_matches_plain_and_native(dev, W):
     gen = np.random.default_rng(W)
     dtype = np.uint8 if W == 8 else np.uint16
     host = RS._matmul if W == 8 else RS._matmul16
-    for m, k, n in ((1, 1, 1), (3, 5, 7), (9, 33, 130), (42, 22, 4097), (17, 40, 3)):
+    for m, k, n in ((1, 1, 1), (3, 5, 7), (9, 33, 130), (42, 22, 4097), (17, 40, 3),
+                    (50, 342, 1), (50, 342, 974), (682, 342, 974)):
         mat = gen.integers(0, 1 << W, size=(m, k), dtype=dtype)
         mat[0, 0] = 0
         data = gen.integers(0, 1 << W, size=(k, n), dtype=dtype)
@@ -632,4 +644,5 @@ def test_forced_broadcast_on_the_card_matches_host(dev):
     launched = {k: cuda_ec.LAUNCHES[k] for k in cuda_ec.RBC_KERNELS}
     host = cs.broadcast_1mb(CpuBackend(), nodes=16, payload_bytes=20_000, seed=5)
     assert (card["messages"], card["digest"]) == (host["messages"], host["digest"])
-    assert launched == probe.sent and all(launched.values())
+    # the trees hash their own leaves: no sha256 batch on this path
+    assert launched == probe.sent and launched["merkle_forest"] and launched["gf_matmul"]

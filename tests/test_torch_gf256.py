@@ -154,3 +154,38 @@ def test_codec_rule_routes_each_product():
     assert dev.reconstruct(slots) == full
     # the parity product, the decode and the two missing rows
     assert seen == [(3, 6, 10), (6, 6, 10), (2, 6, 10)]
+
+
+@pytest.mark.parametrize("W", [8, 16])
+def test_abin_tiles_hold_the_reference_binary_expansion(W):
+    """The kernel's operand (``abin_tiles``, built from ``const_table`` on
+    the tensor's device) is the reference's ``_binary_matrix{,16}`` in
+    tiles of 256 rows × 32 bits of k, core matrices of 8 rows × 16 bytes,
+    zero padded."""
+    rng = random.Random(20 + W)
+    m, k = (37, 11) if W == 8 else (19, 7)
+    mat = _mat(rng, m, k, W)
+    mat[0, 0], mat[1, 1] = 0, 1
+    table = PG.const_table(mat)
+    tiles = PG.abin_tiles(torch.from_numpy(table if W == 8 else table.view(np.int16)), W)
+    MT, KS = -(-W * m // 256), -(-W * k // 32)
+    assert tuple(tiles.shape) == (MT, KS, 256 * 32) and tiles.dtype == torch.uint8
+    flat = tiles.view(MT, KS, 32, 2, 8, 16).permute(0, 2, 4, 1, 3, 5).reshape(MT * 256, KS * 32)
+    binary = (RG._binary_matrix if W == 8 else RG._binary_matrix16)((m, k, mat.tobytes()))
+    assert np.array_equal(flat[: W * m, : W * k].numpy(), binary.astype(np.uint8))
+    assert not flat[W * m :].any() and not flat[:, W * k :].any()
+
+
+@pytest.mark.parametrize("columns", [1, 2, 3, 17])
+def test_thin_products_match_reference(columns):
+    """Thin products (a proposer's dead rows, a sequential engine's few
+    symbols) through the wrapper's route on CPU tensors, against the
+    reference's device products."""
+    rng = random.Random(columns)
+    m16, d16 = _mat(rng, 5, 12, 16), _mat(rng, 12, columns, 16)
+    want16 = np.asarray(RG.gf16_matmul_device(m16, jnp.asarray(d16)))
+    got16 = PG.gf_matmul(m16, torch.from_numpy(d16.view(np.int16)))
+    assert np.array_equal(got16.numpy().view(np.uint16), want16)
+    m8, d8 = _mat(rng, 3, 9, 8), _mat(rng, 9, columns, 8)
+    want8 = np.asarray(RG.gf_matmul_device(m8, jnp.asarray(d8)))
+    assert np.array_equal(PG.gf_matmul(m8, torch.from_numpy(d8)).numpy(), want8)

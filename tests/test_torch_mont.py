@@ -98,15 +98,20 @@ def test_header_constants_match_field():
 
 def test_windowed_sources_include_the_header():
     """All three scalar-mul kernels include the Montgomery header, the
-    only Fq field header: the limb field's bls_fq.cuh is gone.  The one
-    other header is fr_matmul's Fr arithmetic, which only it includes."""
+    only Fq field header: the limb field's bls_fq.cuh is gone.  The other
+    headers are fr_matmul's Fr arithmetic, which only it includes, the
+    SHA-256 compression of sha256 and merkle_forest, and the wgmma pieces
+    of fr_matmul and gf_matmul; none of those kernels includes the field."""
     for name in ("win_g1", "win_g2", "scan_g1"):
         src = kernels.SOURCES[name].read_text()
         assert '#include "bls_mont.cuh"' in src and "bls_fq.cuh" not in src, name
         assert "fr_words.cuh" not in src, name
-    assert sorted(p.name for p in kernels.CSRC.glob("*.cuh")) == ["bls_mont.cuh", "fr_words.cuh"]
+    assert sorted(p.name for p in kernels.CSRC.glob("*.cuh")) == [
+        "bls_mont.cuh", "fr_words.cuh", "sha256.cuh", "wgmma_u8.cuh"]
     fr_src = kernels.SOURCES["fr_matmul"].read_text()
     assert '#include "fr_words.cuh"' in fr_src and "bls_mont.cuh" not in fr_src
+    for name in ("sha256", "merkle", "gf_matmul"):
+        assert "bls_mont.cuh" not in kernels.SOURCES[name].read_text(), name
     assert "scan_ladder" in kernels.SOURCES["scan_g1"].read_text()
 
 

@@ -2,15 +2,19 @@
 
 ``CudaBackend(device="cpu")`` with every size rule at its floor
 (``chip_smoke.forced``) sends each codec product through ``gf_matmul``'s
-route and each tree or hash batch of 8 or more uniform items through
-``sha256`` / ``merkle_level``'s (their plain versions, on CPU tensors):
+route, each hash batch of 8 or more uniform items through ``sha256``'s
+and each batch of trees of 8 or more leaves through ``merkle_forest``'s
+(their plain versions, on CPU tensors):
 
 - the port's ``Broadcast`` over its ``TestNetwork`` (n = 7 and 16) against
   the reference's on its ``CpuBackend``, from one seed: outputs, message
   counts and wire bytes equal;
 - a mock ``VectorizedHoneyBadgerSim`` epoch against the reference's:
   batches byte-equal (the epoch's parity, decode and dead-row products and
-  its trees on the card's route);
+  its forests on the card's route), and at n = 16 with dead nodes,
+  corrupt echo shards, a forced re-root mismatch and a failed decode,
+  batches and fault logs entry for entry, on the forced card route and
+  on ``CpuBackend``;
 - ``_codec_matmul``'s GF(2^16) branch against ``gf16_matmul_device``;
 - ``chip_smoke.py``'s phase 7 drivers at small sizes.
 """
@@ -82,7 +86,7 @@ def test_broadcast_on_the_cards_route_matches_reference(nodes, size):
     sent = probe.sent
     assert sent["gf_matmul"] > 0  # every decode's products on the card's route
     if nodes >= 8:
-        assert sent["sha256"] > 0 and sent["merkle_level"] > 0  # the trees too
+        assert sent["merkle_forest"] > 0  # the trees too, a forest of one each
 
 
 def test_broadcast_driver_on_the_cpu():
@@ -106,10 +110,9 @@ def test_mock_epoch_on_the_cards_route_matches_reference():
     r = ref.run_epoch(contribs, dead=dead)
     assert pdumps(p.batch) == rdumps(r.batch)
     assert p.accepted == r.accepted and p.coin_flips == r.coin_flips
-    # one parity and one decode product, one dead-row product and two trees
-    # a proposer
-    assert probe.sent == {"gf_matmul": 2 + len(contribs), "sha256": 2 * len(contribs),
-                          "merkle_level": 2 * len(contribs) * 4}  # 10 leaves: 4 levels above
+    # one parity, one decode and one dead-row product a wave; one forest of
+    # commitments and one roots-only forest of reconstructions
+    assert probe.sent == {"gf_matmul": 3, "sha256": 0, "merkle_forest": 2}
 
 
 def test_rbc_split_covers_the_epochs_rbc():
@@ -118,11 +121,12 @@ def test_rbc_split_covers_the_epochs_rbc():
     sim = PSim(n, random.Random(5), mock=True, ops=CudaBackend(device="cpu"))
     with RbcProbe(sim.ref.ops, sim) as split:
         sim.run_epoch(contribs, dead=dead)
-    assert split.calls == {"parity": 1, "decode": 1, "dead_rows": len(contribs),
-                           "trees": 2 * len(contribs), "reroot": len(contribs)}
+    assert split.calls == {"parity": 1, "decode": 1, "dead_rows": 1, "trees": 2,
+                           "reroot": len(contribs)}
     assert split.shapes["parity"][:2] == (6, 4) and split.shapes["dead_rows"][:2] == (1, 4)
-    # the default rules keep this small epoch on the host
-    assert split.sent == {"sha256": 0, "merkle_level": 0, "gf_matmul": 0}
+    # the default rules send its two forests (9 trees of 10 leaves, then 8)
+    # to the card's route and keep its products on the host
+    assert split.sent == {"sha256": 0, "merkle_forest": 2, "gf_matmul": 0}
     # every wrapper went with the context, and no module global was rebound
     assert not {"_codec_matmul", "_rbc_phase", "_reroot"} & set(vars(sim))
     assert not {"merkle_tree", "sha256_many", "rs_codec"} & set(vars(sim.ref.ops))
@@ -147,9 +151,96 @@ def test_probe_follows_the_era_switch():
         sim.run_epoch({i: [b"d%d" % i] for i in sim.validators})
     # a parity and a decode product an epoch; trees of 7 and 6 leaves stay
     # below the reference's 8
-    assert first.sent == second.sent == {"sha256": 0, "merkle_level": 0, "gf_matmul": 2}
+    assert first.sent == second.sent == {"sha256": 0, "merkle_forest": 0, "gf_matmul": 2}
     assert "matmul" not in vars(old.codec) and "matmul" not in vars(sim.sim.codec)
     assert not {"merkle_tree", "sha256_many", "rs_codec"} & set(vars(ops))
+
+
+def _faulty_epoch(sim, reroot_patch, contribs, dead, corrupt):
+    """One epoch of ``sim`` with the wave's decode product corrupted in
+    proposers 5's and 9's columns (their reconstructions' roots then miss
+    their commitments) and the third proposer's independent re-root
+    tampered (``reroot_patch`` installs it), so that it replays the
+    per-instance path."""
+    k = sim.data
+    wave = sorted(p for p in contribs if p not in corrupt)
+    codec_matmul = sim._codec_matmul
+
+    def corrupted(rows, byte_mat):
+        out = codec_matmul(rows, byte_mat)
+        if rows.shape == (k, k):  # the decode (parity and dead rows are not square)
+            out = out.copy()
+            width = out.shape[1] // len(wave)
+            for pid in (5, 9):
+                out[0, wave.index(pid) * width] ^= 0x5A
+        return out
+
+    calls = [0]
+
+    def tamper(tree_cls):
+        def reroot(values):
+            tree = tree_cls(values)
+            calls[0] += 1
+            if calls[0] == 3:
+                tree.levels = tree.levels[:-1] + [[bytes(32)]]
+            return tree
+
+        return reroot
+
+    sim._codec_matmul = corrupted
+    reroot_patch(tamper)
+    return sim.run_epoch(contribs, dead=dead, corrupt_shards=corrupt)
+
+
+@pytest.mark.parametrize("backend", ["forced_cuda_cpu", "cpu"])
+def test_faulty_wave_matches_reference_fault_order(backend, monkeypatch):
+    import hbbft_tpu.harness.epoch as REpoch
+
+    n, dead = 16, {14, 15}
+    contribs = {i: [b"w-%d" % i] for i in range(n) if i not in dead}
+    corrupt = {7: {1: b"\x00" * 4, 3: b"\x01" * 4}}
+    ops = _forced() if backend == "forced_cuda_cpu" else CpuBackend()
+    port = PSim(n, random.Random(16), mock=True, ops=ops)
+
+    def port_patch(tamper):
+        port._reroot = tamper(PSim._reroot)
+
+    def ref_patch(tamper):
+        monkeypatch.setattr(REpoch, "_PyMerkleTree", tamper(REpoch._PyMerkleTree))
+
+    with RbcProbe(port.ref.ops, port) as probe:
+        p = _faulty_epoch(port, port_patch, contribs, dead, corrupt)
+    r = _faulty_epoch(RSim(n, random.Random(16), mock=True), ref_patch, contribs, dead, corrupt)
+    faults = [(f.node_id, f.kind.name) for f in p.fault_log]
+    assert faults == [(f.node_id, f.kind.name) for f in r.fault_log]
+    assert faults == [(5, "BROADCAST_DECODING_FAILED"), (9, "BROADCAST_DECODING_FAILED"),
+                      (1, "INVALID_PROOF"), (3, "INVALID_PROOF")]
+    assert pdumps(p.batch) == rdumps(r.batch) and p.accepted == r.accepted
+    assert 2 in p.batch.contributions and 5 not in p.batch.contributions
+    # the wave: a forest of 13 commitments, one dead-rows product and a
+    # roots-only forest of the 12 that passed the re-root
+    assert probe.calls["dead_rows"] == 1 and probe.shapes["dead_rows"][2] == 12 * probe.shapes[
+        "parity"][2] // 13
+    if backend == "forced_cuda_cpu":
+        assert probe.sent["merkle_forest"] >= 2
+
+
+def test_merkle_trees_equal_a_loop_of_merkle_tree():
+    gen = np.random.default_rng(3)
+    arr = gen.integers(0, 256, size=(4, 9, 5), dtype=np.uint8)
+    groups = [[row.tobytes() for row in g] for g in arr]
+    for be in (_forced(), CudaBackend(device="cpu"), CpuBackend()):
+        loop = [be.merkle_tree(g) for g in groups]
+        for batch in (groups, arr):
+            trees = be.merkle_trees(batch)
+            assert [t.levels for t in trees] == [t.levels for t in loop]
+            assert [t.values for t in trees] == groups
+            assert be.merkle_trees(batch, roots_only=True) == [t.root_hash for t in loop]
+        assert all(t.proof(i).validate(9) for t in be.merkle_trees(arr) for i in range(9))
+    # trees of different shapes are no forest: the host builds them
+    mixed = [groups[0], groups[1][:8], [b"x" * 7] * 8]
+    assert [t.levels for t in _forced().merkle_trees(mixed)] == [
+        t.levels for t in CpuBackend().merkle_trees(mixed)]
 
 
 def test_codec_matmul_gf16_branch_matches_gf16_matmul_device():
@@ -176,9 +267,10 @@ def test_phase_7_checks_on_the_cpu():
         seen.add(name)
 
     cs.sha_check(record_err, lengths=(0, 55, 64, 120), batches=(1, 7, 20), device="cpu")
-    cs.merkle_check(record_err, leaves=(1, 2, 3, 11), lengths=(2, 100), device="cpu")
+    cs.merkle_check(record_err, leaves=(1, 2, 3, 11), lengths=(2, 100), forests=((3, 20, 2),),
+                    big_leaves=40, device="cpu")
     cs.gf_check(record_err, 20, device="cpu", nodes8=7, payload=1000, nodes16=300, dead16=10)
-    assert seen == {"sha256", "merkle_level", "gf_matmul"}
+    assert seen == {"sha256", "merkle_forest", "gf_matmul"}
 
 
 def test_mesh_programs_driver_on_the_cpu():

@@ -1,4 +1,4 @@
-"""The port's batched SHA-256 and Merkle levels (``ops/sha256.py``)
+"""The port's batched SHA-256 and Merkle trees (``ops/sha256.py``)
 against the reference's XLA programs (``hbbft_tpu/ops/sha256_jax.py``),
 ``hashlib`` and ``MerkleTree``, exactly.
 
@@ -41,9 +41,13 @@ def test_pad_messages_equal(length):
 
 def test_pad_messages_empty_batch_and_leaf_blocks():
     assert np.array_equal(PS.pad_messages([]), RS.pad_messages([]))
-    vals = _msgs(3, 9, 40)
-    leaves = [b"\x00" + i.to_bytes(8, "big") + v for i, v in enumerate(vals)]
-    assert np.array_equal(PS._leaf_blocks(vals), RS.pad_messages(leaves))
+    # the forest's plain version pads its leaf messages as the reference does
+    for length in (40, 55, 56, 0):
+        vals = _msgs(3 + length, 9, length)
+        leaves = [b"\x00" + i.to_bytes(8, "big") + v for i, v in enumerate(vals)]
+        arr = torch.from_numpy(np.frombuffer(b"".join(vals) or b"", np.uint8).reshape(1, 9, length).copy())
+        words = PS._leaf_words(arr).numpy().view(np.uint32)
+        assert np.array_equal(words, RS.pad_messages(leaves))
 
 
 @pytest.mark.parametrize("length", LENGTHS)
@@ -73,11 +77,13 @@ def test_merkle_level_plain_hashes_node_messages():
         np.random.default_rng(1).integers(0, 2**32, size=(6, 8), dtype=np.uint32).view(np.int32))
     kids = PS.digests_to_bytes(words)
     want = [hashlib.sha256(b"\x01" + kids[i] + kids[i + 1]).digest() for i in range(0, 6, 2)]
-    assert PS.digests_to_bytes(PS.merkle_level(words)) == want
-    out = torch.empty((3, 8), dtype=torch.int32)
-    assert PS.merkle_level(words, out=out) is out and PS.digests_to_bytes(out) == want
+    assert PS.digests_to_bytes(PS.merkle_level_plain(words)) == want
+    # the forest builds its levels from it: two leaves' parent is the root
+    vals = np.random.default_rng(2).integers(0, 256, size=(1, 2, 5), dtype=np.uint8)
+    rows = PS.merkle_forest(torch.from_numpy(vals))
+    assert torch.equal(rows[0, 2:], PS.merkle_level_plain(rows[0, :2]))
     with pytest.raises(ValueError):
-        PS.merkle_level(words[:5])  # an odd level: the caller repeats its last hash
+        PS.merkle_forest(torch.zeros((1, 0, 5), dtype=torch.uint8))  # a tree needs a leaf
 
 
 @pytest.mark.parametrize("leaves", [1, 2, 3, 11, 64])
@@ -114,8 +120,9 @@ def test_forced_backend_hashes_like_cpu_backend():
             assert tree.root_hash == host.merkle_tree(vals).root_hash
             assert all(tree.proof(i).validate(n) for i in range(n))
         assert type(be.merkle_tree(_msgs(5, 5, 24))).__name__ == "MerkleTree"  # fewer than 8
-        # the batches of 8, 12 and 9 hashes and the two trees took the card's route
-    assert probe.sent == {"sha256": 3 + 2, "merkle_level": 3 + 4, "gf_matmul": 0}
+        # the batches of 8, 12 and 9 hashes and the two trees (a forest of
+        # one each) took the card's route
+    assert probe.sent == {"sha256": 3, "merkle_forest": 2, "gf_matmul": 0}
 
 
 def test_default_rules_keep_small_batches_on_the_host():
@@ -124,14 +131,14 @@ def test_default_rules_keep_small_batches_on_the_host():
     be = CudaBackend(device="cpu")
     with RbcProbe(be) as probe:
         be.sha256_many(_msgs(4, 64, 40))
-        be.merkle_tree(_msgs(5, 64, 40))
-    assert probe.sent == {"sha256": 0, "merkle_level": 0, "gf_matmul": 0}
+        be.merkle_tree(_msgs(5, be.MERKLE_DEVICE_MIN_LEAVES - 1, 40))  # a leaf below the rule
+    assert probe.sent == {"sha256": 0, "merkle_forest": 0, "gf_matmul": 0}
     n, most = be.SHA_DEVICE_MIN_ITEMS, be.SHA_DEVICE_MAX_BYTES // be.SHA_DEVICE_MIN_ITEMS
     assert not be.sha_on_device(_msgs(3, n - 1, 40))
     assert be.sha_on_device([b"\0" * most] * n)
     # past the batch's byte ceiling it stays on the host
     assert not be.sha_on_device([b"\0" * (most + 1)] * n)
     n, most = be.MERKLE_DEVICE_MIN_LEAVES, be.MERKLE_DEVICE_MAX_BYTES // be.MERKLE_DEVICE_MIN_LEAVES
-    assert not be.tree_on_device(_msgs(4, n - 1, 2))
-    assert be.tree_on_device(_msgs(4, n, 2))
-    assert not be.tree_on_device([b"\0" * (most + 1)] * n)
+    assert not be.forest_on_device(1, n - 1, 2)
+    assert be.forest_on_device(1, n, 2)
+    assert not be.forest_on_device(1, n, most + 1)

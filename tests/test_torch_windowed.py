@@ -147,8 +147,8 @@ def test_header_edit_changes_every_kernel_tag(tmp_path, monkeypatch):
     )
     before = {n: kernels.lib_path(n) for n in kernels.SOURCES}
     assert set(before) == {"win_g1", "win_g2", "scan_g1", "ring_permute", "fr_matmul", "cosim_step",
-                           "sha256", "gf_matmul"}
-    assert len(set(before.values())) == 8
+                           "sha256", "merkle", "gf_matmul"}
+    assert len(set(before.values())) == 9
     header = tmp_path / "bls_mont.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: kernels.lib_path(n) for n in kernels.SOURCES}
