@@ -248,10 +248,13 @@ In order, and with no phase's failure caught:
    fault log, coin flips, share count, agreement and class epochs.
 7. **The reliable-broadcast plane and the mesh's sharded programs** —
    (a) each new kernel against its plain version on the card, tolerance
-   0, and against an independent host: ``sha256`` against ``hashlib`` at
-   messages of 0, 1, 55, 56, 63, 64, 119, 120 and 47,672 bytes (the 1 MB
-   broadcast's leaf message) at batches 1, 7 and 1,000 (the plain
-   version once on the 1,000, whose first rows are the smaller batches);
+   0, and against an independent host: ``sha256``'s two entries (the
+   padded words, and the raw rows back to back from one byte into their
+   buffer, padded by the kernel) against ``hashlib`` at messages of 0, 1,
+   55, 56, 63, 64, 119, 120 and 47,672 bytes (the 1 MB broadcast's leaf
+   message) at batches 1, 7 and 1,000 (the plain version once on the
+   1,000, whose first rows are the smaller batches; the raw entry's
+   plain padding equal to ``pad_messages``);
    ``merkle_levels_device`` (a forest of one) against
    ``MerkleTree.levels`` at 1, 2, 3, 11, 64 and 1,024 leaves (2-byte
    leaves; 47,663-byte ones up to 64), and ``merkle_forest`` against its
@@ -280,7 +283,10 @@ In order, and with no phase's failure caught:
    ``g1_multi_exp`` / ``g2_multi_exp`` and ``hashlib``, each launching
    the kernels it names once a shard.  (e) Each new kernel timed on the
    card's timeline at the shapes of (a) and (b), with its bound and its
-   plain version's time.
+   plain version's time; ``sha256`` also at 16,384 × 4,096 B (checked
+   against ``hashlib``) and at a shard of the sharded epoch step, both
+   entries, each shape with ``floor_ms`` (one warp's chain alone on a
+   scheduler, :func:`sha_floor`).
 8. **Report** — the ``kernels`` JSON line (launches counted per path:
    each path's counts are set to 0 just before it and read just after —
    the flush, the mesh flush, the DKG, the n = 64 epochs on the card
@@ -318,7 +324,9 @@ In order, and with no phase's failure caught:
    ``launches`` are the forced 1 MB broadcast's, ``sha256``'s the sharded
    epoch step's on the mesh (7(d)),
    ``launches_by_path`` every path's, the epochs', the sequential runs'
-   and the churn's included; ``sha256`` is timed at 1,000 × 47,672 B,
+   and the churn's included; ``sha256`` is timed at 1,000 × 47,672 B
+   through its raw entry (every shape, the words entry's ``words_ms``
+   too, in ``shapes``; the launches' 16 × 20 B shard among them),
    ``merkle_forest`` at the N = 1024 epoch's forest of 974 trees with
    every level (its bound ``forest_bound``), ``gf_matmul`` at the
    broadcast's W = 8 parity product with the N = 1024 epoch's W = 16 one
@@ -473,6 +481,16 @@ BCAST_SEED = 0xB0
 # the mesh's sharded programs: tests/test_parallel.py's inputs at
 # full 255-bit scalars
 MESH_K = 64
+# the sha256 kernel's timed shapes (7(e)): 1,000 messages at every length,
+# the 1 MB broadcast's 64 leaf messages, the N = 1024 epoch's 1,024 leaves
+# of 11 bytes, a batch that fills the card (512 warps of 65-block
+# messages, a point of scripts/torch_rbc_band.py's grid; checked against
+# hashlib) and one shard of the sharded epoch step (7(d): 16 one-block
+# lanes of 20 bytes)
+SHA_FULL_SHAPE = (16_384, 4_096)
+SHA_TIME_SHAPES = ([(max(RBC_SHA_BATCHES), n) for n in RBC_SHA_LENGTHS]
+                   + [(BCAST_NODES, RBC_SHA_LENGTHS[-1]), (BIG_NODES, 11), SHA_FULL_SHAPE,
+                      (MESH_K // MESH_SHARDS, 20)])
 # kernel launches timed back to back on the card's timeline
 RBC_REPS = 10
 
@@ -666,6 +684,15 @@ def sha_bound(batch: int, nblocks: int):
     """``batch`` messages of ``nblocks`` padded blocks: the compressions'
     operations, or the blocks read and the digests written."""
     return ops_or_bytes(batch * nblocks * SHA_OPS_PER_BLOCK, batch * (64 * nblocks + 32))
+
+
+def sha_floor(nblocks: int) -> float:
+    """The least ms of one message of ``nblocks`` blocks when its warp has a
+    scheduler to itself: every compression's int32 operations, a 32-lane
+    instruction two clocks, at the clock the int32 rate implies
+    (``PEAK_INT32_OPS_PER_S`` over 132 SMs × 64 lanes).  A batch of at most
+    528 warps cannot beat it, whatever its bound says."""
+    return nblocks * SHA_OPS_PER_BLOCK * 2 / (PEAK_INT32_OPS_PER_S / (132 * 64)) * 1e3
 
 
 def forest_bound(trees: int, leaves: int, length: int, roots_only: bool = False):
@@ -1776,7 +1803,7 @@ def broadcast_1mb(ops, nodes=BCAST_NODES, payload_bytes=BCAST_PAYLOAD, seed=BCAS
 def sha256_plain_replayed(blocks):
     """``ops/sha256.sha256_plain`` of CUDA ``blocks``, its compression (the
     plain version's own torch ops, ~3,600 a block, launch-bound when
-    issued one by one: ~22–39 s at 745 blocks on the H100's host) captured
+    issued one by one: ~22–39 s at 746 blocks on the H100's host) captured
     once as a CUDA graph and replayed block after block — the same
     kernels on the same inputs, without a Python dispatch an op.  CPU
     blocks run ``sha256_plain`` itself."""
@@ -1811,12 +1838,17 @@ def sha256_plain_replayed(blocks):
 
 def sha_check(record_err, lengths=RBC_SHA_LENGTHS, batches=RBC_SHA_BATCHES, seed=RBC_SEED,
               device=None) -> dict:
-    """``sha256`` against ``hashlib`` and, on the same blocks, its plain
-    version (computed once on the largest batch, whose first rows are the
-    smaller batches; on the card through :func:`sha256_plain_replayed`,
-    itself held against the eager plain version at the 120-byte length),
-    at every length and batch.  Returns the plain version's ms at each
-    length."""
+    """Both entries of the ``sha256`` kernel against ``hashlib`` and, on the
+    same messages, their plain version, at every length and batch: the
+    words entry ``sha256`` on ``pad_messages``' blocks, the raw entry
+    ``sha256_bytes`` on the messages' rows back to back from one byte into
+    their buffer (so rows start at every alignment).  The raw entry's
+    plain padding (torch ops on the rows) must equal ``pad_messages``, so
+    one plain digest serves both: computed once on the largest batch,
+    whose first rows are the smaller batches; on the card through
+    :func:`sha256_plain_replayed`, itself held against the eager plain
+    version at the 120-byte length.  Returns the plain version's ms at
+    each length."""
     import hashlib
 
     import torch
@@ -1830,6 +1862,11 @@ def sha_check(record_err, lengths=RBC_SHA_LENGTHS, batches=RBC_SHA_BATCHES, seed
         raw = gen.integers(0, 256, size=(max(batches), length), dtype=np.uint8)
         msgs = [row.tobytes() for row in raw]
         blocks = torch.from_numpy(SH.pad_messages(msgs).view(np.int32)).to(dev)
+        buf = torch.zeros(raw.size + 1, dtype=torch.uint8, device=dev)
+        buf[1:] = torch.from_numpy(raw.reshape(-1)).to(dev)
+        rows = buf[1:].view(raw.shape)
+        if not torch.equal(SH._message_words(rows), blocks):
+            fail(f"the raw entry's plain padding differs from pad_messages at {length} B")
         if dev.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1841,10 +1878,10 @@ def sha_check(record_err, lengths=RBC_SHA_LENGTHS, batches=RBC_SHA_BATCHES, seed
             fail("the replayed plain SHA-256 differs from the eager plain version")
         want = [hashlib.sha256(m).digest() for m in msgs]
         for b in batches:
-            got = SH.sha256(blocks[:b])
-            record_err("sha256", got, plain[:b], f"at {b} × {length} B")
-            if SH.digests_to_bytes(got) != want[:b]:
-                fail(f"sha256 at {b} × {length} B differs from hashlib")
+            for entry, got in (("words", SH.sha256(blocks[:b])), ("raw", SH.sha256_bytes(rows[:b]))):
+                record_err("sha256", got, plain[:b], f"({entry} entry) at {b} × {length} B")
+                if SH.digests_to_bytes(got) != want[:b]:
+                    fail(f"sha256 ({entry} entry) at {b} × {length} B differs from hashlib")
     return plain_ms
 
 
@@ -2024,6 +2061,8 @@ def rbc_phase(record_err, timed, device_timed, epoch_cols: int, mesh) -> dict:
     any mismatch.  ``epoch_cols``: the byte columns of the N = 1024
     epoch's parity product (phase 4b), P·L, so its symbol columns are
     P·L/2.  Returns the kernels' times, bounds and each path's launches."""
+    import hashlib
+
     import torch
 
     from hbbft_tpu_torch.crypto.backend import CpuBackend
@@ -2045,7 +2084,8 @@ def rbc_phase(record_err, timed, device_timed, epoch_cols: int, mesh) -> dict:
     merkle_check(record_err)
     gf_check(record_err, cols16)
     out["rbc_check"] = dict(cuda_ec.LAUNCHES)
-    log(f"rbc (a): sha256 equal to its plain version and hashlib at {RBC_SHA_BATCHES} × "
+    log(f"rbc (a): sha256 (the words and the raw entry, its rows unaligned) equal to its plain "
+        f"version and hashlib at {RBC_SHA_BATCHES} × "
         f"{RBC_SHA_LENGTHS} B; merkle_levels_device equal to MerkleTree at {RBC_LEAVES} leaves; "
         f"merkle_forest equal to its plain version (levels and roots) at those trees, the forests "
         f"{RBC_FORESTS} and 1 × {RBC_BIG_LEAVES} × 2 B; gf_matmul W=8 and W=16 equal to "
@@ -2082,21 +2122,29 @@ def rbc_phase(record_err, timed, device_timed, epoch_cols: int, mesh) -> dict:
     # (e) times on the card's timeline at the shapes of (a) and (b)
     gen = np.random.default_rng(RBC_SEED + 1)
 
-    def blocks_of(batch, length):
-        raw = gen.integers(0, 256, size=(batch, length), dtype=np.uint8)
-        return torch.from_numpy(SH.pad_messages([r.tobytes() for r in raw]).view(np.int32)).to(dev)
-
     def kernel_ms(fn):
         fn()  # warm-up
         return device_timed(fn, RBC_REPS)
 
+    # ms: the raw entry (sha256_many's), words_ms: the words entry on the
+    # same messages padded by the host
     sha_rows = []
-    for batch, length in ([(max(RBC_SHA_BATCHES), n) for n in RBC_SHA_LENGTHS]
-                          + [(BCAST_NODES, RBC_SHA_LENGTHS[-1]), (BIG_NODES, 11)]):
-        blocks = blocks_of(batch, length)
-        b = sha_bound(batch, blocks.shape[1])
-        sha_rows.append({"batch": batch, "bytes": length, "ms": kernel_ms(lambda: SH.sha256(blocks)),
-                         "bound_ms": b[0], "bound_by": b[1]})
+    for batch, length in SHA_TIME_SHAPES:
+        raw = gen.integers(0, 256, size=(batch, length), dtype=np.uint8)
+        msgs = [r.tobytes() for r in raw]
+        rows = torch.from_numpy(raw).to(dev)
+        blocks = torch.from_numpy(SH.pad_messages(msgs).view(np.int32)).to(dev)
+        if (batch, length) == SHA_FULL_SHAPE:
+            want = [hashlib.sha256(m).digest() for m in msgs]
+            for entry, got in (("words", SH.sha256(blocks)), ("raw", SH.sha256_bytes(rows))):
+                if SH.digests_to_bytes(got) != want:
+                    fail(f"sha256 ({entry} entry) at {batch} × {length} B differs from hashlib")
+        nblocks = blocks.shape[1]
+        b = sha_bound(batch, nblocks)
+        sha_rows.append({"batch": batch, "bytes": length, "blocks": nblocks,
+                         "ms": kernel_ms(lambda: SH.sha256_bytes(rows)),
+                         "words_ms": kernel_ms(lambda: SH.sha256(blocks)),
+                         "bound_ms": b[0], "bound_by": b[1], "floor_ms": sha_floor(nblocks)})
     row = sha_rows[len(RBC_SHA_LENGTHS) - 1]
     out["sha256"] = dict(row, plain_ms=sha_plain_ms[RBC_SHA_LENGTHS[-1]], shapes=sha_rows)
     forest_rows = []
@@ -3193,9 +3241,10 @@ def main() -> int:
                 shape=[COSIM_TIME_N, COSIM_TIME_Z], floor_ms=cosim["floor_ms"],
             ),
             dict(
-                # library_ms None: no PyTorch call hashes; ms and plain_ms at
-                # 1,000 messages of 47,672 B (the 1 MB broadcast's leaf
-                # message); launches: the sharded epoch step's on the mesh
+                # library_ms None: no PyTorch call hashes; ms (the raw
+                # entry) and plain_ms at 1,000 messages of 47,672 B (the 1 MB
+                # broadcast's leaf message); launches: the sharded epoch
+                # step's on the mesh, timed at its 16 × 20 B shard in shapes
                 # (the trees hash their own leaves in merkle_forest, so the
                 # broadcasts and epochs launch no sha256)
                 row("sha256", "hbbft_tpu/ops/sha256_jax.py:90",

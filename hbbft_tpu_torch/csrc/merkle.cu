@@ -16,10 +16,10 @@
 //
 // Design.  One block a tree.  Its threads hash the leaves, building each
 // leaf's message and padding in registers from the raw values ([T, n,
-// len] bytes on the card; a block of the message that lies inside the
-// value is read as aligned 32-bit words and byte-permuted, the others
-// byte by byte), one thread a leaf, a multi-block leaf one thread's chain
-// of compressions.  The tree's rows stay in shared memory (a 1,024-leaf
+// len] bytes on the card) with sha256.cuh's hash_message<9>, the code
+// sha256.cu's raw entry runs (aligned 32-bit loads and byte permutes, the
+// next block's loads ahead of each compression), one thread a leaf, a
+// multi-block leaf one thread's chain of compressions.  The tree's rows stay in shared memory (a 1,024-leaf
 // tree's 2,047 rows take 64 KB; up to 7,264 rows, ~3,600 leaves, fit a
 // block's 227 KB), and each level is built from the one below after a
 // __syncthreads, one thread a parent.  At the end the block writes, with
@@ -49,55 +49,6 @@ namespace {
 constexpr int FOREST_THREADS = 256;
 // the most dynamic shared memory a block can use on an H100
 constexpr int FOREST_SMEM_MAX = 232448;
-
-// Byte p of leaf `index`'s padded message 0x00 ‖ index₈ ‖ value ‖ 0x80 ‖
-// zeros ‖ bit length₈, `total` bytes in all.
-__device__ __forceinline__ uint32_t leaf_byte(const uint8_t* v, int len, uint32_t index,
-                                              int64_t p, int64_t total) {
-  const int64_t mlen = 9 + (int64_t)len;
-  if (p == 0) return 0u;
-  if (p < 9) return p <= 4 ? 0u : (index >> (8 * (8 - p))) & 0xFFu;
-  if (p < mlen) return v[p - 9];
-  if (p == mlen) return 0x80u;
-  if (p >= total - 8) return (uint32_t)((8ull * (uint64_t)mlen) >> (8 * (total - 1 - p))) & 0xFFu;
-  return 0u;
-}
-
-// The digest of leaf `index` with value v[0, len).
-__device__ void hash_leaf(uint32_t s[8], const uint8_t* v, int len, uint32_t index) {
-  const int64_t mlen = 9 + (int64_t)len;
-  const int64_t nblocks = (mlen + 72) / 64;  // the message, 0x80 and 8 length bytes
-  const int64_t total = nblocks * 64;
-  init_state(s);
-  for (int64_t b = 0; b < nblocks; ++b) {
-    const int64_t p0 = 64 * b;
-    uint32_t w[16];
-    if (p0 >= 9 && p0 + 64 <= mlen) {
-      // all 64 bytes are value bytes: 17 aligned words, each big-endian
-      // word picked out of two of them (every word read holds a byte of
-      // the value, so none lies past the value's allocation)
-      const uint8_t* a = v + (p0 - 9);
-      const int sh = (int)(reinterpret_cast<uintptr_t>(a) & 3);
-      const uint32_t* a0 = reinterpret_cast<const uint32_t*>(a - sh);
-      uint32_t L[17];
-#pragma unroll
-      for (int q = 0; q < 16; ++q) L[q] = a0[q];
-      L[16] = sh ? a0[16] : 0u;
-      const uint32_t sel = (uint32_t)((sh + 3) | ((sh + 2) << 4) | ((sh + 1) << 8) | (sh << 12));
-#pragma unroll
-      for (int j = 0; j < 16; ++j) w[j] = __byte_perm(L[j], L[j + 1], sel);
-    } else {
-#pragma unroll 4
-      for (int j = 0; j < 16; ++j) {
-        const int64_t p = p0 + 4 * j;
-        w[j] = leaf_byte(v, len, index, p, total) << 24 |
-               leaf_byte(v, len, index, p + 1, total) << 16 |
-               leaf_byte(v, len, index, p + 2, total) << 8 | leaf_byte(v, len, index, p + 3, total);
-      }
-    }
-    compress(s, w);
-  }
-}
 
 // SHA-256(0x01 ‖ l ‖ r): the 65-byte message's first block is 0x01 and the
 // children shifted by one byte, its second r's last byte, 0x80 and the
@@ -133,7 +84,7 @@ __device__ void forest_tree(const uint8_t* __restrict__ v, int n, int len, uint3
                             int tid, int nthreads) {
   for (int i = tid; i < n; i += nthreads) {
     uint32_t s[8];
-    hash_leaf(s, v + (size_t)i * len, len, (uint32_t)i);
+    hash_message<9>(s, v + (size_t)i * len, len, (uint32_t)i);
     store_digest(s, store + (size_t)i * 8);
   }
   int lo = 0, cnt = n;

@@ -121,18 +121,20 @@ class CudaBackend(CpuBackend):
     # that scripts/torch_rbc_band.py printed, the least total time over its
     # grid (ties to the host), on an H100 80GB HBM3 at 700 W (PERF.md §5;
     # card / host ms, as a caller sees them).  A batch of messages goes to
-    # the card from 256 messages up to 4 MiB in all (1,024 × 11 B 0.47 /
-    # 0.58; past a few MiB the host's copies and padding cost the card more
-    # than the hashing: 4,096 × 4,096 B 41.6 / 22.7); a forest of trees from
-    # 64 leaves in all up to 64 MiB, the grid's largest (1 × 64 × 2 B 0.14 /
-    # 0.12, one 1,024-leaf tree 0.17 / 1.76, the N = 1024 epoch's 974 trees of
-    # 1,024 2-byte leaves 30.3 / 1,810); a GF(2^8) product from 2^21 symbol
-    # products (the 1 MB broadcast's parity, 44 M: 0.72 / 3.30); a GF(2^16)
-    # product from 2^14 (the card at every shape measured: the N = 1024
-    # epoch's parity, 227 M, 0.87 / 111.7; a proposer's dead rows, 17,100,
-    # 0.17 / 1.91).
-    SHA_DEVICE_MIN_ITEMS = 1 << 8
-    SHA_DEVICE_MAX_BYTES = 1 << 22
+    # the card from 64 messages up to 256 MiB in all, the grid's largest: the
+    # card pads the raw bytes itself and wins at every batch of 1,024 or
+    # more (1,024 × 11 B 0.339 / 0.621, 4,096 × 4,096 B 5.71 / 16.4, 16,384 ×
+    # 4,096 B 39.2 / 85.5), at 256 from 65 B and at 64 at 47,672 B (1.74 /
+    # 2.52), where the host's losses outweigh the card's below (64 × 11 B
+    # 0.119 / 0.046); a forest of trees from 64 leaves in all up to 64 MiB,
+    # the grid's largest (1 × 64 × 2 B 0.14 / 0.12, one 1,024-leaf tree 0.17
+    # / 1.76, the N = 1024 epoch's 974 trees of 1,024 2-byte leaves 30.3 /
+    # 1,810); a GF(2^8) product from 2^21 symbol products (the 1 MB
+    # broadcast's parity, 44 M: 0.72 / 3.30); a GF(2^16) product from 2^14
+    # (the card at every shape measured: the N = 1024 epoch's parity, 227 M,
+    # 0.87 / 111.7; a proposer's dead rows, 17,100, 0.17 / 1.91).
+    SHA_DEVICE_MIN_ITEMS = 1 << 6
+    SHA_DEVICE_MAX_BYTES = 1 << 28
     MERKLE_DEVICE_MIN_LEAVES = 1 << 6
     MERKLE_DEVICE_MAX_BYTES = 1 << 26
     GF8_DEVICE_MIN = 1 << 21

@@ -8,8 +8,11 @@ and every level of its Merkle tree, is a uniform batch of digests
 is sequential within a message, so the parallelism is across messages.
 
 - :func:`sha256` — ``[B, nblocks, 16]`` big-endian words (padded by
-  :func:`pad_messages`) → ``[B, 8]`` digests; ``csrc/sha256.cu``'s
-  ``sha256_kernel`` runs one thread a message, block after block;
+  :func:`pad_messages`) → ``[B, 8]`` digests, and :func:`sha256_bytes` —
+  ``[B, len]`` raw uint8 rows → ``[B, 8]`` digests, the card padding them;
+  ``csrc/sha256.cu``'s ``sha256_kernel`` (one template, a flag for words
+  padded already) runs one thread a message, block after block, the next
+  block's loads issued ahead of each compression;
 - :func:`merkle_forest` — the raw leaf values of T trees, ``[T, n, len]``
   bytes, → every tree's levels ``[T, R, 8]`` (R = Σ :func:`level_sizes`)
   or only its root ``[T, 8]``; ``csrc/merkle.cu``'s
@@ -24,8 +27,10 @@ gives uint32.  Each wrapper, on a CUDA tensor, launches its kernel on
 the current stream (or raises — never a fallback) and counts it in
 ``cuda_ec.LAUNCHES``; on a CPU tensor it runs the plain version, the
 reference's compression as torch ops on int64 lanes masked to 32 bits
-(:func:`merkle_forest_plain` builds the leaf messages as torch ops and
-each level with :func:`merkle_level_plain`).
+(:func:`sha256_bytes_plain` and :func:`merkle_forest_plain` pad their
+messages as torch ops, the latter builds each level with
+:func:`merkle_level_plain`).  :func:`sha256_many` sends the joined
+messages to the card as one uint8 tensor and pads nothing on the host.
 
 Hashing matches ``crypto.merkle.MerkleTree`` byte for byte: leaf =
 SHA-256(0x00 ‖ index₈ ‖ value), node = SHA-256(0x01 ‖ l ‖ r), and an odd
@@ -198,25 +203,50 @@ def merkle_level_plain(level: torch.Tensor) -> torch.Tensor:
     return sha256_plain(_to_int32(_node_words(level)))
 
 
-def _leaf_words(values: torch.Tensor) -> torch.Tensor:
-    """[T, n, len] uint8 leaf values → [T·n, nblocks, 16] int32 padded
-    words of the leaf messages 0x00 ‖ index₈ ‖ value, the index counted
-    within each tree (the card builds the same messages in registers)."""
-    T, n, ln = values.shape
-    mlen = 9 + ln
+def _message_words(rows: torch.Tensor, index: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, len] uint8 rows → [B, nblocks, 16] int32 padded words of their
+    messages (the reference's padding: 0x80, zeros, the 64-bit bit
+    length), as torch ops where the rows lie; with ``index`` ([B] int64)
+    each message is the Merkle leaf 0x00 ‖ index₈ ‖ row.  The card builds
+    the same words in registers."""
+    B, ln = rows.shape
+    plen = 0 if index is None else 9
+    mlen = plen + ln
     nblocks = (mlen + 72) // 64  # the message, 0x80 and 8 length bytes
-    dev = values.device
-    buf = torch.zeros((T * n, nblocks * 64), dtype=torch.int64, device=dev)
-    idx = torch.arange(n, dtype=torch.int64, device=dev).repeat(T)
-    for q in range(8):
-        buf[:, 1 + q] = (idx >> (8 * (7 - q))) & 0xFF
-    buf[:, 9:mlen] = values.reshape(T * n, ln).to(torch.int64)
+    buf = torch.zeros((B, nblocks * 64), dtype=torch.int64, device=rows.device)
+    if index is not None:
+        for q in range(8):
+            buf[:, 1 + q] = (index >> (8 * (7 - q))) & 0xFF
+    buf[:, plen:mlen] = rows.to(torch.int64)
     buf[:, mlen] = 0x80
     for q in range(8):
         buf[:, nblocks * 64 - 8 + q] = ((8 * mlen) >> (8 * (7 - q))) & 0xFF
-    b = buf.reshape(T * n, nblocks * 16, 4)
+    b = buf.reshape(B, nblocks * 16, 4)
     words = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
-    return _to_int32(words).reshape(T * n, nblocks, 16)
+    return _to_int32(words).reshape(B, nblocks, 16)
+
+
+def _leaf_words(values: torch.Tensor) -> torch.Tensor:
+    """[T, n, len] uint8 leaf values → [T·n, nblocks, 16] int32 padded
+    words of the leaf messages 0x00 ‖ index₈ ‖ value, the index counted
+    within each tree."""
+    T, n, ln = values.shape
+    idx = torch.arange(n, dtype=torch.int64, device=values.device).repeat(T)
+    return _message_words(values.reshape(T * n, ln), idx)
+
+
+def _rows(rows: torch.Tensor) -> torch.Tensor:
+    if rows.dtype != torch.uint8 or rows.dim() != 2:
+        raise ValueError(f"sha256_bytes takes [B, len] uint8 rows, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    return rows
+
+
+def sha256_bytes_plain(rows: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of ``sha256_bytes``: [B, len] uint8
+    messages → [B, 8] int32 digest words, padded as torch ops and hashed
+    by :func:`sha256_plain`."""
+    return sha256_plain(_message_words(_rows(rows)))
 
 
 def _forest_values(values: torch.Tensor) -> torch.Tensor:
@@ -261,6 +291,8 @@ def _lib() -> ctypes.CDLL:
     p = ctypes.c_void_p
     lib.sha256_launch.argtypes = [p, p, ctypes.c_int, ctypes.c_int, p]
     lib.sha256_launch.restype = ctypes.c_int
+    lib.sha256_bytes_launch.argtypes = [p, p, ctypes.c_int, ctypes.c_longlong, p]
+    lib.sha256_bytes_launch.restype = ctypes.c_int
     lib.sha256_error_string.argtypes = [ctypes.c_int]
     lib.sha256_error_string.restype = ctypes.c_char_p
     lib.error_string = lib.sha256_error_string
@@ -298,8 +330,9 @@ def _out(out: Optional[torch.Tensor], rows: int, like: torch.Tensor, name: str) 
     if out is None:
         return torch.empty((rows, 8), dtype=torch.int32, device=like.device)
     out = _words(out, name)
-    if tuple(out.shape) != (rows, 8) or out.device != like.device or not out.is_contiguous():
-        raise ValueError(f"{name} writes a contiguous [{rows}, 8] on {like.device}")
+    if (tuple(out.shape) != (rows, 8) or out.device != like.device or not out.is_contiguous()
+            or (out.device.type == "cuda" and out.data_ptr() % 16)):
+        raise ValueError(f"{name} writes a contiguous, 16-byte aligned [{rows}, 8] on {like.device}")
     return out
 
 
@@ -329,6 +362,28 @@ def sha256(blocks: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Te
         stream = torch.cuda.current_stream(blocks.device).cuda_stream
         _launch(_lib(), "sha256", lambda lib: lib.sha256_launch(
             blocks.data_ptr(), dst.data_ptr(), B, nblocks, stream))
+    return dst
+
+
+def sha256_bytes(rows: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, len] uint8 messages, one a row (any alignment), → [B, 8] int32
+    digest words (into ``out`` when given, a contiguous [B, 8] int32
+    tensor); the kernel pads them itself."""
+    rows = _rows(rows)
+    B, ln = rows.shape
+    if rows.device.type == "cpu":
+        res = sha256_bytes_plain(rows)
+        return res if out is None else _out(out, B, rows, "sha256").copy_(res)
+    if rows.device.type != "cuda":
+        raise ValueError(f"sha256_bytes runs on cuda or cpu tensors, not {rows.device}")
+    dst = _out(out, B, rows, "sha256")
+    if B == 0:
+        return dst
+    rows = rows.contiguous()
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        _launch(_lib(), "sha256", lambda lib: lib.sha256_bytes_launch(
+            rows.data_ptr(), dst.data_ptr(), B, ln, stream))
     return dst
 
 
@@ -385,13 +440,31 @@ def _to_device(words: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(words.view(np.int32)).to(device)
 
 
+def _be_bytes(words: torch.Tensor) -> torch.Tensor:
+    """[..., 8] int32 digest words → their big-endian bytes [..., 32],
+    swapped where they lie (on the card, not by the host after the copy)."""
+    return words.view(torch.uint8).reshape(*words.shape, 4).flip(-1).reshape(
+        *words.shape[:-1], 32)
+
+
 def sha256_many(msgs: Sequence[bytes], device: DeviceLike = None) -> List[bytes]:
     """Batched SHA-256 of uniform-length messages (on the card unless
-    ``device`` says otherwise)."""
+    ``device`` says otherwise): the joined messages go to the device as
+    one uint8 tensor, one ``sha256_bytes`` pads and hashes them there, and
+    the digests' bytes come back in one copy."""
     if not msgs:
         return []
+    n = len(msgs[0])
+    if any(len(m) != n for m in msgs):
+        raise ValueError("sha256_many needs uniform-length messages")
     dev = resolve_device(device)
-    return digests_to_bytes(sha256(_to_device(pad_messages(msgs), dev)))
+    B = len(msgs)
+    if n:
+        rows = torch.frombuffer(bytearray().join(msgs), dtype=torch.uint8).reshape(B, n).to(dev)
+    else:
+        rows = torch.empty((B, 0), dtype=torch.uint8, device=dev)
+    raw = _be_bytes(sha256_bytes(rows)).cpu().numpy().tobytes()
+    return [raw[i : i + 32] for i in range(0, len(raw), 32)]
 
 
 def level_sizes(n_leaves: int) -> List[int]:
@@ -434,10 +507,7 @@ def merkle_forest_device(values, device: DeviceLike = None, roots_only: bool = F
     if not isinstance(t, torch.Tensor):
         arr = np.ascontiguousarray(values, dtype=np.uint8)
         t = torch.from_numpy(arr if arr.flags.writeable else arr.copy()).to(resolve_device(device))
-    words = merkle_forest(t, roots_only)
-    # the words' big-endian bytes, swapped where they lie (on the card, not
-    # by the host after the copy)
-    raw = words.view(torch.uint8).reshape(*words.shape, 4).flip(-1).contiguous()
+    raw = _be_bytes(merkle_forest(t, roots_only))
     return raw.cpu().numpy().reshape(t.shape[0], -1)
 
 

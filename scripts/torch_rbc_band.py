@@ -35,13 +35,29 @@ sides' totals.  The JSON
 also goes to ``chiprun_out/torch_rbc_band.json``; the last line is the
 card's name and power limit.  Run from the repo root on a CUDA host:
 ``python3 scripts/torch_rbc_band.py`` (``--reps`` calls a point).
+
+With ``--parent DIR`` (a directory holding another tree's ``sha256.cu``,
+``sha256.cuh`` and ``merkle.cu``, e.g. the parent commit's
+``hbbft_tpu_torch/csrc`` unpacked by ``git archive`` into a git-ignored
+directory; repeatable) it also builds those two kernels of each and,
+first, times them beside this tree's on the card's timeline, in turns
+(each tree's calls, then again in the reverse order; each the median of
+three runs of ``--reps`` launches enqueued behind a sleep) at
+``PAIR_SHA`` (each tree's words entry on the padded words, its raw entry
+on the rows where it has one) and ``PAIR_FORESTS``, every output checked
+against ``hashlib`` and this tree's forest; and in the SHA-256 grid it
+times the first such tree's ``sha256_many`` as that tree ran it (host
+padding, the words kernel) beside the card's and the host's.
+``--pairs-only`` stops after the pairs.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -72,6 +88,15 @@ GF_SHAPES = (
     + [(16, 50, 342, c) for c in (1, 2, 974)]
 )
 POW2 = [0] + [1 << i for i in range(0, 31)]
+# --parent: the sha256 kernel's shapes (messages, bytes) — chip_smoke.py's
+# 7(e): the 1 MB broadcast's leaf message at 1,000 and 64, a batch that
+# fills the card, the N = 1024 epoch's leaves, 1,000 short messages — and
+# merkle_forest's (trees, leaves, bytes): the N = 1024 epoch's forest and
+# the 1 MB broadcast's tree
+PAIR_SHA = ([(1000, 47_672), (16_384, 4_096), (64, 47_672), (1024, 11)]
+            + [(1000, n) for n in (0, 1, 55, 56, 63, 64, 119, 120)])
+PAIR_FORESTS = [(974, 1024, 2), (1, 64, 47_663)]
+SLEEP_CYCLES = 100_000_000
 
 
 def median_s(fn, reps: int) -> float:
@@ -122,9 +147,137 @@ def best_rule(points, floors, ceilings=()):
             "all_card_s": sum(p["card_s"] for p in points)}
 
 
+def parent_libs(src: str, label: str):
+    """The ``sha256`` and ``merkle`` kernels of the sources in ``src``, built
+    by ``nvcc`` with this tree's flags under build/; (sha256, merkle)
+    libraries with their launch functions typed."""
+    from hbbft_tpu_torch.ops import kernels
+
+    out = kernels.BUILD_DIR / "parent" / label
+    out.mkdir(parents=True, exist_ok=True)
+    libs = []
+    for name in ("sha256", "merkle"):
+        so = out / f"lib{name}.so"
+        proc = subprocess.run([kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", str(so),
+                               str(pathlib.Path(src) / f"{name}.cu")],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise SystemExit(f"torch_rbc_band: nvcc failed on the parent's {name}.cu:\n"
+                             + proc.stderr[-3000:])
+        libs.append(ctypes.CDLL(str(so)))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    libs[0].sha256_launch.argtypes = [p, p, i, i, p]
+    libs[0].sha256_launch.restype = i
+    if hasattr(libs[0], "sha256_bytes_launch"):
+        libs[0].sha256_bytes_launch.argtypes = [p, p, i, ctypes.c_longlong, p]
+        libs[0].sha256_bytes_launch.restype = i
+    libs[1].merkle_forest_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+    libs[1].merkle_forest_launch.restype = i
+    return libs
+
+
+def device_ms(fn, reps: int) -> float:
+    """ms a call on the card's timeline: ``reps`` calls enqueued behind a
+    sleep, so they run back to back."""
+    import torch
+
+    fn()  # warm-up
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    marks[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    marks[1].record()
+    for _ in range(reps):
+        fn()
+    marks[2].record()
+    torch.cuda.synchronize()
+    return marks[1].elapsed_time(marks[2]) / reps
+
+
+def kernel_pairs(others, gen, reps: int):
+    """Other trees' ``sha256`` and ``merkle_forest`` kernels (``others``:
+    {label: (sha256 library, merkle library)}) against this tree's, in
+    turns on one card (see the module docstring)."""
+    import hashlib
+
+    import torch
+
+    from hbbft_tpu_torch.ops import sha256 as SH
+
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    lib, mlib = SH._lib(), SH._merkle_lib()
+
+    def checked(rc):
+        if rc:
+            raise SystemExit(f"torch_rbc_band: a launch failed ({rc})")
+
+    def turns(calls):
+        """{label: [ms, ms]}: the calls timed in the order given, then in
+        the reverse order."""
+        got = {label: [] for label in calls}
+        for label in list(calls) + list(reversed(list(calls))):
+            got[label].append(statistics.median(device_ms(calls[label], reps) for _ in range(3)))
+        return got
+
+    rows = []
+    for batch, nbytes in PAIR_SHA:
+        raw = gen.integers(0, 256, size=(batch, nbytes), dtype=np.uint8)
+        msgs = [r.tobytes() for r in raw]
+        rows_t = torch.from_numpy(raw).to(dev)
+        blocks = torch.from_numpy(SH.pad_messages(msgs).view(np.int32)).to(dev)
+        nblocks = blocks.shape[1]
+        outs, calls = {}, {}
+
+        def add(label, lib_):
+            for entry, fn in (("words", "sha256_launch"), ("raw", "sha256_bytes_launch")):
+                if not hasattr(lib_, fn):
+                    continue
+                key = f"{label} {entry}" if label else entry
+                out = outs[key] = torch.zeros((batch, 8), dtype=torch.int32, device=dev)
+                if entry == "words":
+                    calls[key] = lambda f=getattr(lib_, fn), o=out: checked(f(
+                        blocks.data_ptr(), o.data_ptr(), batch, nblocks, stream))
+                else:
+                    calls[key] = lambda f=getattr(lib_, fn), o=out: checked(f(
+                        rows_t.data_ptr(), o.data_ptr(), batch, nbytes, stream))
+
+        for label, (plib, _) in others.items():
+            add(label, plib)
+        add("", lib)
+        row = {"batch": batch, "bytes": nbytes, "blocks": nblocks, **turns(calls)}
+        want = [hashlib.sha256(m).digest() for m in msgs]
+        for label, t in outs.items():
+            if SH.digests_to_bytes(t) != want:
+                raise SystemExit(f"torch_rbc_band: sha256 ({label}) differs at {batch} × {nbytes}")
+        rows.append(row)
+        print("pair sha256 " + json.dumps(row), flush=True)
+    for T, n, nbytes in PAIR_FORESTS:
+        values = torch.from_numpy(gen.integers(0, 256, size=(T, n, nbytes), dtype=np.uint8)).to(dev)
+        R = sum(SH.level_sizes(n))
+        libs = {**{label: m for label, (_, m) in others.items()}, "new": mlib}
+        outs = {k: torch.zeros((T, R, 8), dtype=torch.int32, device=dev) for k in libs}
+
+        def forest(lib_, out):
+            return lambda: checked(lib_.merkle_forest_launch(
+                values.data_ptr(), out.data_ptr(), None, T, n, nbytes, R, 0, stream))
+
+        row = {"trees": T, "leaves": n, "bytes": nbytes,
+               **turns({k: forest(libs[k], outs[k]) for k in libs})}
+        torch.cuda.synchronize()
+        if any(not torch.equal(o, outs["new"]) for o in outs.values()):
+            raise SystemExit(f"torch_rbc_band: merkle_forest differs at {T} × {n} × {nbytes}")
+        rows.append(row)
+        print("pair merkle_forest " + json.dumps(row), flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--parent", action="append", default=[],
+                    help="another tree's csrc directory to time beside this one (repeatable)")
+    ap.add_argument("--pairs-only", action="store_true", help="stop after the --parent pairs")
     args = ap.parse_args()
 
     import torch
@@ -146,6 +299,24 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = np.random.default_rng(0xBA)
     out = {"reps": args.reps}
+    others = {os.path.basename(os.path.dirname(os.path.abspath(d))) or d: d for d in args.parent}
+    others = {label: parent_libs(d, label) for label, d in others.items()}
+    plib = next(iter(others.values()), None)
+    if others:
+        out["pairs"] = kernel_pairs(others, gen, max(args.reps, 10))
+    if args.pairs_only:
+        return finish(out)
+
+    def parent_many(msgs):
+        """The parent tree's ``sha256_many``: padded on the host, its words
+        kernel, the digests swapped by the host."""
+        blocks = torch.from_numpy(SH.pad_messages(msgs).view(np.int32)).to(dev)
+        res = torch.empty((len(msgs), 8), dtype=torch.int32, device=dev)
+        rc = plib[0].sha256_launch(blocks.data_ptr(), res.data_ptr(), len(msgs), blocks.shape[1],
+                                   torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise SystemExit(f"torch_rbc_band: the parent's sha256 launch failed ({rc})")
+        return SH.digests_to_bytes(res)
 
     sha = []
     for count in SHA_COUNTS:
@@ -159,9 +330,16 @@ def main() -> int:
             p = {"items": count, "bytes": nbytes, "total": count * nbytes,
                  "host_s": median_s(lambda: NT.sha256_many(msgs), args.reps),
                  "card_s": median_s(lambda: SH.sha256_many(msgs, dev), args.reps)}
+            if plib is not None:
+                if parent_many(msgs) != NT.sha256_many(msgs):
+                    raise SystemExit(f"torch_rbc_band: the parent's sha256 differs at "
+                                     f"{count} × {nbytes}")
+                p["parent_card_s"] = median_s(lambda: parent_many(msgs), args.reps)
             sha.append(p)
             print(f"sha256 {count} × {nbytes} B: host {p['host_s'] * 1e3:.4f} ms, "
-                  f"card {p['card_s'] * 1e3:.4f} ms", flush=True)
+                  f"card {p['card_s'] * 1e3:.4f} ms"
+                  + (f", parent's card {p['parent_card_s'] * 1e3:.4f} ms" if plib else ""),
+                  flush=True)
     out["sha256"] = sha
     out["sha256_rule"] = best_rule(sha, ["items"], ["total"])
 
@@ -215,13 +393,18 @@ def main() -> int:
     out["gf8_rule"] = best_rule(gf[8], ["products"])
     out["gf16_rule"] = best_rule(gf[16], ["products"])
 
+    for rule in ("sha256_rule", "merkle_rule", "gf8_rule", "gf16_rule"):
+        print(f"{rule}: " + json.dumps(out[rule]), flush=True)
+    return finish(out)
+
+
+def finish(out) -> int:
+    """Write the JSON and print the card's name and power limit last."""
     card_line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     out["card"] = card_line
-    for rule in ("sha256_rule", "merkle_rule", "gf8_rule", "gf16_rule"):
-        print(f"{rule}: " + json.dumps(out[rule]), flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "torch_rbc_band.json"), "w") as fh:
         json.dump(out, fh, indent=1)

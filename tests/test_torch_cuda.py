@@ -28,13 +28,14 @@ one launch of ``cosim_step`` and none of ``cosim_hist``, with the 4-shard
 mesh step equal to the one launch; so must the tail shapes n = 0, 1, 15,
 16, 17, 4,097 at Z = 1, 5, 257 (the mesh step called twice, reusing its
 scratch) and column views that are not 16-byte aligned; and the packed
-co-sim on the card must equal its CPU run.  ``sha256``, ``merkle_forest``
+co-sim on the card must equal its CPU run.  ``sha256`` (its words entry
+and its raw-bytes entry, rows at every alignment), ``merkle_forest``
 (every level and roots only, a tree above the shared-memory limit too)
 and ``gf_matmul`` (W = 8 and 16, thin and one-column products too) must
 equal their plain versions byte for byte and ``hashlib`` / ``MerkleTree``
 / the native products, with one launch a call (``merkle_levels_device``:
 a forest of one), and a forced backend's broadcast must deliver the host
-run's messages.
+run's messages; ``sha256_many`` on the card pads nothing on the host.
 """
 
 import random
@@ -574,6 +575,51 @@ def test_sha256_matches_plain_and_hashlib(dev):
         _equal_bytes(got, SH.sha256_plain(blocks))
         assert SH.digests_to_bytes(got) == [hashlib.sha256(m).digest() for m in msgs]
         assert SH.digests_to_bytes(SH.sha256(blocks[1:])) == SH.digests_to_bytes(got)[1:]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_sha256_raw_entry_matches_plain_and_hashlib(dev, offset):
+    """The raw entry on rows back to back from ``offset`` bytes into their
+    buffer, one launch a call, equal to its plain version (the 47,672-byte
+    rows' compression replayed as chip_smoke.py does) and ``hashlib``."""
+    import hashlib
+
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops import sha256 as SH
+
+    gen = np.random.default_rng(10 + offset)
+    for length, batch in ((0, 130), (1, 130), (55, 130), (56, 130), (63, 130), (64, 130),
+                          (119, 130), (120, 130), (1000, 130), (47_672, 7)):
+        raw = gen.integers(0, 256, size=(batch, length), dtype=np.uint8)
+        buf = torch.zeros(raw.size + offset, dtype=torch.uint8, device=dev)
+        buf[offset:] = torch.from_numpy(raw.reshape(-1)).to(dev)
+        rows = buf[offset:].view(batch, length)
+        before = cuda_ec.LAUNCHES["sha256"]
+        got = SH.sha256_bytes(rows)
+        assert cuda_ec.LAUNCHES["sha256"] == before + 1
+        words = SH._message_words(rows)
+        plain = (SH.sha256_plain(words) if length < 47_672
+                 else _smoke().sha256_plain_replayed(words))
+        _equal_bytes(got, plain)
+        assert SH.digests_to_bytes(got) == [hashlib.sha256(r.tobytes()).digest() for r in raw]
+
+
+def test_sha256_many_on_the_card_pads_nothing_on_the_host(dev, monkeypatch):
+    import hashlib
+
+    from hbbft_tpu_torch.ops import cuda_ec
+    from hbbft_tpu_torch.ops import sha256 as SH
+
+    def no_padding(msgs):
+        raise AssertionError("sha256_many padded on the host")
+
+    monkeypatch.setattr(SH, "pad_messages", no_padding)
+    gen = np.random.default_rng(4)
+    for length in (0, 11, 4096):
+        msgs = [gen.integers(0, 256, size=length, dtype=np.uint8).tobytes() for _ in range(300)]
+        before = cuda_ec.LAUNCHES["sha256"]
+        assert SH.sha256_many(msgs, dev) == [hashlib.sha256(m).digest() for m in msgs]
+        assert cuda_ec.LAUNCHES["sha256"] == before + 1
 
 
 def test_merkle_levels_on_the_card_match_tree(dev):

@@ -4,7 +4,8 @@
 ``csrc/gf_matmul.cu`` are compiled with the host C++ compiler, the CUDA
 qualifiers defined away by a stand-in ``cuda_runtime.h``:
 
-- ``sha256_kernel`` runs for every thread of its grid;
+- ``sha256_kernel`` runs for every thread of its grid, through its words
+  entry and its raw one (rows at every alignment, padded in registers);
 - ``merkle_forest``'s body (``forest_tree``) runs a block's threads as
   ``std::thread``s meeting at a ``std::barrier`` where it calls
   ``__syncthreads``, tree after tree, into a host buffer standing for
@@ -98,11 +99,12 @@ typedef void* cudaStream_t;
 """
 
 _SHA_HARNESS = r"""
-extern "C" void h_sha256(const uint32_t* blocks, uint32_t* out, int B, int nblocks) {
+// every thread of the grid, through the words entry (padded) or the raw one
+extern "C" void h_sha256(int padded, const void* src, uint32_t* out, int B, int64_t n) {
   for (int i = 0; i < B; ++i) {
     blockIdx = dim3(i / THREADS);
     threadIdx = dim3(i % THREADS);
-    sha256_kernel(blocks, out, B, nblocks);
+    if (padded) sha256_kernel<true>(src, out, B, n); else sha256_kernel<false>(src, out, B, n);
   }
 }
 """
@@ -223,8 +225,7 @@ def _build(tmp_path_factory, name, body, harness, std):
 
 @pytest.fixture(scope="module")
 def sha_lib(tmp_path_factory):
-    body = _kernel_body("sha256", 'extern "C" {').replace("}  // namespace", "")
-    body = body.replace("namespace {", "")
+    body = _kernel_body("sha256", "// ---- the launch").replace("namespace {", "")
     return _build(tmp_path_factory, "sha256", body, _SHA_HARNESS, "c++20")
 
 
@@ -251,13 +252,36 @@ def test_sha256_kernel_on_the_host(sha_lib, length):
     msgs = [gen.integers(0, 256, size=length, dtype=np.uint8).tobytes() for _ in range(5)]
     blocks = np.ascontiguousarray(SH.pad_messages(msgs))
     out = np.zeros((5, 8), np.uint32)
-    sha_lib.h_sha256(_ptr(blocks), _ptr(out), 5, blocks.shape[1])
+    sha_lib.h_sha256(1, _ptr(blocks), _ptr(out), 5, ctypes.c_int64(blocks.shape[1]))
     assert SH.digests_to_bytes(out) == [hashlib.sha256(m).digest() for m in msgs]
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("length", [1, 55, 56, 63, 64, 119, 120, 47_672])
+def test_sha256_raw_entry_on_the_host(sha_lib, length, offset):
+    """The raw entry: 7 rows back to back from ``offset`` bytes into an
+    aligned buffer, so the rows start at every alignment (and 47,672 ≡ 8
+    mod 16), the card's padding and the read-ahead of every inner block;
+    the words entry on the same messages, both equal to ``hashlib``."""
+    B = 7
+    gen = np.random.default_rng(length * 4 + offset)
+    buf = gen.integers(0, 256, size=B * length + 16, dtype=np.uint8)
+    rows = buf[offset : offset + B * length]
+    msgs = [rows[i * length : (i + 1) * length].tobytes() for i in range(B)]
+    want = [hashlib.sha256(m).digest() for m in msgs]
+    out = np.zeros((B, 8), np.uint32)
+    sha_lib.h_sha256(0, _ptr(rows), _ptr(out), B, ctypes.c_int64(length))
+    assert SH.digests_to_bytes(out) == want
+    blocks = np.ascontiguousarray(SH.pad_messages(msgs))
+    out[:] = 0
+    sha_lib.h_sha256(1, _ptr(blocks), _ptr(out), B, ctypes.c_int64(blocks.shape[1]))
+    assert SH.digests_to_bytes(out) == want
 
 
 @pytest.mark.parametrize("T,n,length,threads,offset", [
     (2, 1, 2, 32, 0), (3, 5, 11, 32, 1), (2, 10, 55, 32, 3), (1, 64, 200, 64, 1),
-    (2, 33, 56, 64, 2), (1, 300, 2, 256, 0), (1, 7, 1000, 32, 3), (1, 3, 0, 32, 0)])
+    (2, 33, 56, 64, 2), (1, 300, 2, 256, 0), (1, 7, 1000, 32, 3), (1, 3, 0, 32, 0),
+    (1, 3, 47_663, 32, 1)])
 def test_merkle_forest_kernel_on_the_host(merkle_lib, T, n, length, threads, offset):
     """Every row of each tree equals ``MerkleTree.levels``: the leaf
     messages made in registers (a value at every alignment: ``offset``

@@ -62,6 +62,60 @@ def test_sha256_device_matches_reference_and_hashlib(length):
     assert PS.sha256_many(msgs, device="cpu") == [hashlib.sha256(m).digest() for m in msgs]
 
 
+# the raw-bytes entry's lengths: empty, one byte, the padding's edges at
+# 55/56 and 63/64, the two-to-three-block edge at 119/120, and 1,000
+RAW_LENGTHS = [0, 1, 55, 56, 63, 64, 119, 120, 1000]
+
+
+@pytest.mark.parametrize("length", RAW_LENGTHS)
+def test_sha256_bytes_plain_and_many_match_reference_and_hashlib(length):
+    """``sha256_bytes`` on CPU rows (its plain version: the reference's
+    padding as torch ops, then ``sha256_plain``) and ``sha256_many`` on the
+    CPU against the reference's ``sha256_many`` and ``hashlib``; the torch
+    padding equals ``pad_messages``'."""
+    raw = np.random.default_rng(7000 + length).integers(0, 256, size=(6, length), dtype=np.uint8)
+    msgs = [r.tobytes() for r in raw]
+    want = [hashlib.sha256(m).digest() for m in msgs]
+    assert RS.sha256_many(msgs) == want
+    rows = torch.from_numpy(raw)
+    assert np.array_equal(PS._message_words(rows).numpy().view(np.uint32), RS.pad_messages(msgs))
+    before = dict(cuda_ec.LAUNCHES)
+    got = PS.sha256_bytes(rows)
+    assert got.dtype == torch.int32 and got.shape == (6, 8)
+    assert torch.equal(got, PS.sha256_bytes_plain(rows))
+    assert PS.digests_to_bytes(got) == want
+    assert PS.sha256_many(msgs, device="cpu") == want
+    assert cuda_ec.LAUNCHES == before  # CPU tensors never count a launch
+
+
+def test_sha256_bytes_takes_rows_at_any_offset_and_writes_out():
+    buf = torch.from_numpy(np.random.default_rng(3).integers(0, 256, size=3 * 57 + 1, dtype=np.uint8))
+    rows = buf[1:].view(3, 57)  # a view one byte into its storage
+    out = torch.zeros((3, 8), dtype=torch.int32)
+    assert PS.sha256_bytes(rows, out=out) is out
+    assert PS.digests_to_bytes(out) == [hashlib.sha256(r.numpy().tobytes()).digest() for r in rows]
+    with pytest.raises(ValueError):
+        PS.sha256_bytes(torch.zeros((3, 4), dtype=torch.int32))  # bytes only
+    with pytest.raises(ValueError):
+        PS.sha256_many([b"ab", b"abc"], device="cpu")  # one length a batch
+
+
+def test_sha256_many_pads_nothing_on_the_host(monkeypatch):
+    """``sha256_many`` hands the joined messages to ``sha256_bytes`` and
+    never calls ``pad_messages``."""
+    def no_padding(msgs):
+        raise AssertionError("sha256_many padded on the host")
+
+    monkeypatch.setattr(PS, "pad_messages", no_padding)
+    monkeypatch.setattr(PS, "_be_words", no_padding)
+    seen = []
+    real = PS.sha256_bytes
+    monkeypatch.setattr(PS, "sha256_bytes", lambda rows: seen.append(rows.shape) or real(rows))
+    msgs = _msgs(11, 9, 47)
+    assert PS.sha256_many(msgs, device="cpu") == [hashlib.sha256(m).digest() for m in msgs]
+    assert seen == [(9, 47)]
+
+
 def test_sha256_device_keeps_uint32_and_counts_no_cpu_launch():
     msgs = _msgs(7, 3, 20)
     blocks = torch.from_numpy(PS.pad_messages(msgs).view(np.int32)).view(torch.uint32)
@@ -130,7 +184,7 @@ def test_default_rules_keep_small_batches_on_the_host():
 
     be = CudaBackend(device="cpu")
     with RbcProbe(be) as probe:
-        be.sha256_many(_msgs(4, 64, 40))
+        be.sha256_many(_msgs(4, be.SHA_DEVICE_MIN_ITEMS - 1, 40))  # a message below the rule
         be.merkle_tree(_msgs(5, be.MERKLE_DEVICE_MIN_LEAVES - 1, 40))  # a leaf below the rule
     assert probe.sent == {"sha256": 0, "merkle_forest": 0, "gf_matmul": 0}
     n, most = be.SHA_DEVICE_MIN_ITEMS, be.SHA_DEVICE_MAX_BYTES // be.SHA_DEVICE_MIN_ITEMS
